@@ -1,0 +1,200 @@
+// Shared pieces of the hand-written Hopper kernels: constants, the
+// parameter block, the state-plane pointers, the counter hash and the
+// scalar game-math laws.
+//
+// Every function is host+device so the same source also compiles as plain
+// C++ (no __CUDACC__). Arithmetic follows the plain engine of the port
+// (agarcl_tpu_torch/engine/*.py) operation for operation:
+//  - the library is built with --fmad=false, so no a*b+c is contracted
+//    except the explicit FMAF sites, which are the sites XLA-CPU fuses
+//    (engine/geometry.py "FMA contract");
+//  - pow, atan, cos and sin are evaluated in double and rounded once
+//    (engine/geometry.py "Transcendentals");
+//  - sqrtf and division are IEEE (nvcc's defaults; never --use_fast_math);
+//  - f32 sums over cell slots run in slot order, one add at a time.
+#pragma once
+
+#include <cmath>
+#include <cstdint>
+#include <cstring>
+
+#ifdef __CUDACC__
+#include <cuda_runtime.h>
+#define HD __host__ __device__ __forceinline__
+#else
+#define HD inline
+#endif
+// one rounding of a*b+c: fma.rn.f32 on the device, libm's fmaf on the host
+#define FMAF(a, b, c) fmaf((a), (b), (c))
+
+namespace agarcl {
+
+// compile-time capacities (agarcl_tpu_torch/ops/params.py checks configs)
+constexpr int MAX_CELLS = 16;
+constexpr int MAX_TICKS_RING = 16;
+constexpr int MAX_VIRUSES = 64;
+constexpr int MAX_PLAYERS = 16;
+
+// game constants (agarcl_tpu_torch/constants.py)
+constexpr int CELL_MIN_SIZE = 25;
+constexpr float CELL_MAX_SPEED = 300.0f;
+constexpr int CELL_SPLIT_MINIMUM = 50;
+constexpr int RECOMBINE_TICKS = 300;
+constexpr float RECOMBINE_TOUCH_EPS = 0.01f;
+constexpr int CELL_POP_SIZE = 25;
+constexpr int PLAYER_CELL_LIMIT = 14;
+constexpr int NUM_CELLS_TO_SPLIT = PLAYER_CELL_LIMIT;
+constexpr float PLAYER_DECAY_RATE = 0.002f;
+constexpr int DECAY_TICKS = 60;
+constexpr int NUMBER_OF_FOOD_HITS = 7;
+constexpr int MAX_MASS_IN_THE_GAME = 22500;
+constexpr int NEW_MASS_IF_NO_SPLIT = 22000;
+constexpr int ANTI_TEAM_TICKS = 3600;
+constexpr int PELLET_MASS = 1;
+constexpr int FOOD_MASS = 10;
+constexpr int VIRUS_INITIAL_MASS = 100;
+constexpr float FOOD_SPEED = 100.0f;
+constexpr int REGEN_PERIOD = 120;
+constexpr int FEED_COOLDOWN = 10;
+constexpr int SPLIT_COOLDOWN = 30;
+constexpr float TARGET_ACTION_SCALE = 10.0f;
+constexpr int EMPTY_TICK = -(1 << 30);
+constexpr int BIG_I = 1 << 30;
+constexpr int DEAD_KEY = 0x7FFFFFFF;
+constexpr float PI32 = 3.14159265358979323846f;
+constexpr float INV_PI32 = 0.31830988618379067154f;
+constexpr float TWO_PI32 = 6.28318530717958647692f;
+constexpr uint32_t GOLDEN = 0x9E3779B9u;
+constexpr uint32_t STREAM_PELLET = 1;
+constexpr uint32_t STREAM_VIRUS = 2;
+
+// Mirrors agarcl_tpu_torch/ops/params.py::EnvParams field for field.
+struct EnvParams {
+  int P, A, Cc, Np, Nv, Nf, K, num_pellets, num_viruses;
+  int mass_decay, pellet_regen, ticks_per_step;
+  int qlx, nqx, qly, nqy, kp, kv, R, kbits_p, kbits_v;
+  float W, H, dt, inv_w, inv_h, p_invx, p_invy, kdec_split, kdec_food;
+  float spawn_k, virus_hi_x, virus_hi_y, virus_rad;
+};
+
+// The 41 (feature, N) state planes in _SPLIT_PLAN order
+// (agarcl_tpu_torch/ops/fused_tick.py); element (f, n) is at f * N + n.
+struct Planes {
+  float *tx, *ty;
+  int *action, *split_cd, *feed_cd, *elapsed, *last_decay;
+  float *anti_team;
+  int *vticks, *vptr, *food_eaten, *highest, *viruses_eaten, *cells_eaten;
+  float *cx, *cy, *cvx, *cvy, *svx, *svy;
+  int *cmass;
+  uint8_t *calive;
+  int *cid, *crecomb, *next_id, *pkey;
+  float *vx, *vy, *vvx, *vvy;
+  int *vmass, *vhits;
+  uint8_t *valive;
+  float *fx, *fy, *fvx, *fvy;
+  uint8_t *falive;
+  int *fnext, *ticks, *seed;
+};
+
+inline Planes planes_from(void* const* p) {
+  Planes s;
+  int i = 0;
+  s.tx = (float*)p[i++]; s.ty = (float*)p[i++];
+  s.action = (int*)p[i++]; s.split_cd = (int*)p[i++];
+  s.feed_cd = (int*)p[i++]; s.elapsed = (int*)p[i++];
+  s.last_decay = (int*)p[i++]; s.anti_team = (float*)p[i++];
+  s.vticks = (int*)p[i++]; s.vptr = (int*)p[i++];
+  s.food_eaten = (int*)p[i++]; s.highest = (int*)p[i++];
+  s.viruses_eaten = (int*)p[i++]; s.cells_eaten = (int*)p[i++];
+  s.cx = (float*)p[i++]; s.cy = (float*)p[i++];
+  s.cvx = (float*)p[i++]; s.cvy = (float*)p[i++];
+  s.svx = (float*)p[i++]; s.svy = (float*)p[i++];
+  s.cmass = (int*)p[i++]; s.calive = (uint8_t*)p[i++];
+  s.cid = (int*)p[i++]; s.crecomb = (int*)p[i++];
+  s.next_id = (int*)p[i++]; s.pkey = (int*)p[i++];
+  s.vx = (float*)p[i++]; s.vy = (float*)p[i++];
+  s.vvx = (float*)p[i++]; s.vvy = (float*)p[i++];
+  s.vmass = (int*)p[i++]; s.vhits = (int*)p[i++];
+  s.valive = (uint8_t*)p[i++];
+  s.fx = (float*)p[i++]; s.fy = (float*)p[i++];
+  s.fvx = (float*)p[i++]; s.fvy = (float*)p[i++];
+  s.falive = (uint8_t*)p[i++];
+  s.fnext = (int*)p[i++]; s.ticks = (int*)p[i++]; s.seed = (int*)p[i++];
+  return s;
+}
+
+// ------------------------------------------------------------ counter hash
+// lowbias32 over the 5 counters (SPEC D2), bit-identical to prng.py
+HD uint32_t mix(uint32_t h) {
+  h ^= h >> 16; h *= 0x7FEB352Du;
+  h ^= h >> 15; h *= 0x846CA68Bu;
+  h ^= h >> 16; return h;
+}
+HD uint32_t hash_u32(uint32_t seed, uint32_t stream, uint32_t tick,
+                     uint32_t slot, uint32_t axis) {
+  uint32_t h = seed * GOLDEN;
+  h = mix(h ^ (stream * GOLDEN));
+  h = mix(h ^ (tick * GOLDEN));
+  h = mix(h ^ (slot * GOLDEN));
+  h = mix(h ^ (axis * GOLDEN));
+  return h;
+}
+HD float uniformf(uint32_t seed, uint32_t stream, uint32_t tick,
+                  uint32_t slot, uint32_t axis) {
+  return float(hash_u32(seed, stream, tick, slot, axis) >> 8)
+         * (1.0f / 16777216.0f);
+}
+// prng.uniform_q: (u24 * nq) >> 24 in two exact 12-bit halves
+HD int uniform_q(int nq, uint32_t seed, uint32_t stream, uint32_t tick,
+                 uint32_t slot, uint32_t axis) {
+  int u24 = int(hash_u32(seed, stream, tick, slot, axis) >> 8);
+  int hi = u24 >> 12, lo = u24 & 0xFFF;
+  return (hi * nq + ((lo * nq) >> 12)) >> 12;
+}
+
+// ------------------------------------------------------------ game math
+HD float radius(float mass) { return sqrtf(mass * INV_PI32); }
+HD float powd(float x, float e) { return float(pow(double(x), double(e))); }
+HD float max_speed(float mass) {
+  return CELL_MAX_SPEED * powd(fmaxf(mass, 1.0f), -0.439f);
+}
+HD float split_speed(float mass) {
+  return fminf(fmaxf(3.0f * powd(max_speed(mass), 1.2f), 20.0f), 130.0f);
+}
+// x*x + y*y in XLA-CPU's contracted form fma(x, x, y*y)
+HD float norm2(float x, float y) { return FMAF(x, x, y * y); }
+HD float clampb(float v, float r, float hi_edge) {
+  return fmaxf(0.0f, fmaxf(fminf(v, hi_edge - r), r));
+}
+// Velocity::direction(): atan(dx/dy) with +-pi corrections, (0,0) -> 0
+HD float direction(float dx, float dy) {
+  if (dx == 0.0f && dy == 0.0f) return 0.0f;
+  float ratio;
+  if (dy == 0.0f) ratio = dx > 0.0f ? INFINITY : -INFINITY;
+  else ratio = dx / dy;
+  float ang = float(atan(double(ratio)));
+  if (dx < 0.0f) ang = dy > 0.0f ? ang + PI32 : ang - PI32;
+  return ang;
+}
+HD int floor_mod(int a, int b) {
+  int r = a % b;
+  return (r != 0 && ((r < 0) != (b < 0))) ? r + b : r;
+}
+HD int float_bits(float f) {
+#ifdef __CUDA_ARCH__
+  return __float_as_int(f);
+#else
+  int i;
+  std::memcpy(&i, &f, sizeof(i));
+  return i;
+#endif
+}
+// pellet key -> decoded position (state.py::decode_pellet_xy)
+HD float pellet_x(const EnvParams& p, int key) {
+  return (float((key >> 15) & 32767) + 0.5f) * p.p_invx;
+}
+HD float pellet_y(const EnvParams& p, int key) {
+  return (float(key & 32767) + 0.5f) * p.p_invy;
+}
+
+}  // namespace agarcl
