@@ -7,10 +7,13 @@ or delta-mass rewards.
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
 from agarcl_tpu_torch import constants as C
+from agarcl_tpu_torch import prng
 from agarcl_tpu_torch.config import EnvConfig
 from agarcl_tpu_torch.engine import spawn as S
 from agarcl_tpu_torch.engine.tick import engine_tick
@@ -120,17 +123,51 @@ def agent_masses(cfg: EnvConfig, state: GameState) -> torch.Tensor:
     return state.player_mass()[:, :cfg.num_agents].to(torch.float32)
 
 
-def env_step(cfg: EnvConfig, state: GameState, actions):
+def env_step(cfg: EnvConfig, state: GameState, actions,
+             respawn_main_during_obs: bool = False, obs_fn=None,
+             num_frames: int = 1):
     """One environment step (BaseEnvironment::step): apply actions, run
     ticks_per_step engine ticks, apply the mode's respawn / termination,
-    and return (state, rewards (N, A) f32, dones (N, A) bool)."""
-    ms = cfg.mode_spec
+    and return (state, rewards (N, A) f32, dones (N, A) bool).
+
+    With obs_fn (state -> (N, ...) frame) it returns (state, obs, rewards,
+    dones), obs (N, num_frames, ...) holding one frame for each of the last
+    num_frames ticks, zero frames first when num_frames > ticks_per_step.
+    respawn_main_during_obs respawns a dead main player once the frames
+    are taken and charges the step c_death (ScreenEnvironment.hpp:233-243).
+    """
     state = apply_actions(cfg, state, actions)
     before = agent_masses(cfg, state)
     state = state.replace(main_respawned=torch.zeros_like(
         state.main_respawned))
-    for _ in range(cfg.ticks_per_step):
+    F = min(num_frames, cfg.ticks_per_step) if obs_fn is not None else 0
+    frames = []
+    for t in range(cfg.ticks_per_step):
         state = engine_tick(cfg, state)
+        if t >= cfg.ticks_per_step - F:
+            frames.append(obs_fn(state))
+    if obs_fn is not None and num_frames > F:
+        frames = [torch.zeros_like(frames[0])] * (num_frames - F) + frames
+    state, rewards, dones = finish_step(cfg, state, before,
+                                        respawn_main_during_obs)
+    if obs_fn is None:
+        return state, rewards, dones
+    return state, torch.stack(frames, 1), rewards, dones
+
+
+def finish_step(cfg: EnvConfig, state: GameState, before,
+                respawn_main_during_obs: bool = False):
+    """The tail of a step once its ticks ran and its frames were taken:
+    the main respawn, the mode's respawn / termination and the rewards
+    against the agents' masses `before` the ticks. Returns (state, rewards
+    (N, A) f32, dones (N, A) bool)."""
+    ms = cfg.mode_spec
+    if respawn_main_during_obs:
+        main_dead = ~state.player_alive()[:, 0]
+        mask = main_dead[:, None] & (torch.arange(
+            cfg.num_players, device=state.device) == 0)
+        state = respawn_players(cfg, state, mask)
+        state = state.replace(main_respawned=state.main_respawned | main_dead)
     dones = state.dones.clone()
     if ms.respawn_all:                                   # mode 0
         state = respawn_players(cfg, state, ~state.player_alive())
@@ -144,3 +181,18 @@ def env_step(cfg: EnvConfig, state: GameState, actions):
                               float(np.float32(cfg.c_death)), 0.0)[:, None]
         rewards = rewards - (before - penalty)
     return state.replace(dones=dones), rewards, dones
+
+
+def reset_done(cfg: EnvConfig, state: GameState, dones) -> GameState:
+    """Replace every env with a done agent by a fresh reset, seeded from
+    its seed and tick (agarcl_tpu/vec.py:91-102)."""
+    done_env = dones.any(1)
+    if not bool(done_env.any()):
+        return state
+    fresh = env_reset(cfg, prng.hash_u32(state.seed, 7, state.ticks, 0, 0))
+    kw = {}
+    for f in dataclasses.fields(GameState):
+        s, n = getattr(state, f.name), getattr(fresh, f.name)
+        kw[f.name] = torch.where(
+            done_env.reshape((-1,) + (1,) * (s.dim() - 1)), n, s)
+    return GameState(**kw)

@@ -1,7 +1,13 @@
-"""Resident multi-step env step (counterpart of ops/fused_step.py): the
-kernel-layout state carrier and the rim that turns the per-step
-(mass, alive) rows of the multi-step tick into rewards and dones
-(BaseEnvironment.hpp:89-122 semantics, as fused_env_multi_step_resident).
+"""Batched env steps on the kernels (counterpart of ops/fused_step.py).
+
+- `multi_step_resident`: the kernel-layout state carrier and the rim that
+  turns the per-step (mass, alive) rows of the multi-step tick into rewards
+  and dones (BaseEnvironment.hpp:89-122 semantics, as
+  fused_env_multi_step_resident), with per-step screen frames for a
+  ScreenObsConfig;
+- `fused_env_step`: one step on a GameState (as fused_env_step): the tick
+  kernel with k=1, the screen kernel on the post-step planes, then
+  `_finish_step` (main respawn, mode rules, rewards, auto-reset).
 """
 
 from __future__ import annotations
@@ -12,7 +18,9 @@ import torch
 
 from agarcl_tpu_torch import constants as C
 from agarcl_tpu_torch.config import EnvConfig
-from agarcl_tpu_torch.obs.ram import RamObsConfig
+from agarcl_tpu_torch.env import finish_step, reset_done
+from agarcl_tpu_torch.obs.screen import ScreenObsConfig
+from agarcl_tpu_torch.ops import fused_screen as FS
 from agarcl_tpu_torch.ops import fused_tick as FT
 from agarcl_tpu_torch.state import GameState, zero_state
 
@@ -55,18 +63,47 @@ def from_resident(cfg: EnvConfig, resident: ResidentState) -> GameState:
         dones=resident.dones.clone())
 
 
+def _screen_steps(cfg, raw, actions, k, ocfg, step, stack_obs):
+    """k x (one-step tick, then the screen frame of the post-step planes).
+    Returns (planes, obs (k, N, 1, 1, S, S, C) or a k-tuple of
+    (N, 1, 1, S, S, C), info (k, N, 2, P)); stacked frames are written
+    into their slice of one buffer."""
+    N = raw[0].shape[-1]
+    S, ch = ocfg.screen_len, 4 if ocfg.agent_view else 3
+    buf = (torch.empty((k, N, 1, 1, S, S, ch), dtype=torch.uint8,
+                       device=raw[0].device) if stack_obs else None)
+    frames, info = [], []
+    for t in range(k):
+        raw, _, inf = step(cfg, raw, actions, 1, None)
+        info.append(inf[0])
+        if stack_obs:
+            FS.fused_screen_frame(cfg, ocfg, raw, out=buf[t, :, 0])
+        else:
+            frames.append(FS.fused_screen_frame(cfg, ocfg, raw)[:, None])
+    return raw, (buf if stack_obs else tuple(frames)), torch.stack(info)
+
+
 def multi_step_resident(cfg: EnvConfig, resident: ResidentState, actions,
-                        k: int, ocfg: RamObsConfig | None,
-                        step=FT.multi_step_raw):
+                        k: int, ocfg, step=FT.multi_step_raw,
+                        stack_obs: bool = True):
     """k env steps on resident state through `step`: the K1 wrapper
     fused_tick.multi_step_raw by default, or its plain version
     fused_tick.multi_step_raw_plain (the "torch" backend, any device).
+    With a ScreenObsConfig, each step is a one-step `step` call followed by
+    the screen wrapper fused_screen.fused_screen_frame (K3 on CUDA).
 
-    Returns (resident, obs (k, N, 1, A, R) | None, rewards (k, N, A) f32,
-    dones (k, N, A) bool)."""
+    Returns (resident, obs, rewards (k, N, A) f32, dones (k, N, A) bool);
+    obs is (k, N, 1, A, R) for RAM, (k, N, 1, A, S, S, C) uint8 (or a
+    k-tuple of (N, 1, A, S, S, C) with stack_obs=False) for screen, or
+    None."""
     A = cfg.num_agents
     ms = cfg.mode_spec
-    raw, obs, info = step(cfg, resident.raw, actions, k, ocfg)
+    if isinstance(ocfg, ScreenObsConfig):
+        raw, obs, info = _screen_steps(cfg, resident.raw, actions, k, ocfg,
+                                       step, stack_obs)
+    else:
+        raw, obs, info = step(cfg, resident.raw, actions, k, ocfg)
+        obs = obs[:, :, None] if obs is not None else None
     mass_a = info[:, :, 0, :A]                               # (k, N, A)
     step_alive = info[:, :, 1, :] > 0.0                      # (k, N, P)
     dones = resident.dones[None].expand(k, -1, -1).clone()
@@ -81,5 +118,42 @@ def multi_step_resident(cfg: EnvConfig, resident: ResidentState, actions,
         rewards = mass_a - prev
     new_res = ResidentState(raw=list(raw), last_mass=mass_a[-1].clone(),
                             dones=dones[-1].clone())
-    return new_res, (obs[:, :, None] if obs is not None else None), \
-        rewards, dones
+    return new_res, obs, rewards, dones
+
+
+def fused_env_step(cfg: EnvConfig, states: GameState, actions,
+                   ocfg: ScreenObsConfig, num_frames: int = 1,
+                   auto_reset: bool = False,
+                   respawn_main_during_obs: bool = False):
+    """One env step of a batch through the kernel wrappers: apply actions
+    plus ticks_per_step ticks (multi_step_raw with k=1, K1 on CUDA), the
+    screen frame of the post-step state (fused_screen_frame, K3 on CUDA),
+    then `_finish_step`.
+    Returns (states, obs (N, 1, 1, S, S, C) uint8, rewards (N, A),
+    dones (N, A))."""
+    if num_frames != 1:
+        raise NotImplementedError(
+            "the tick kernel runs whole steps: frames of earlier ticks "
+            "(num_frames > 1) are not ported to the kernel path")
+    A = cfg.num_agents
+    before = states.player_mass()[:, :A].to(torch.float32)
+    planes, _, _ = FT.multi_step_raw(cfg, FT.to_kernel_arrays(states),
+                                     actions, 1, None)
+    obs = FS.fused_screen_frame(cfg, ocfg, planes)[:, None]
+    template = states.replace(main_respawned=torch.zeros_like(
+        states.main_respawned))
+    states = FT.from_kernel_arrays(template, planes)
+    return _finish_step(cfg, states, obs, before, respawn_main_during_obs,
+                        auto_reset)
+
+
+def _finish_step(cfg: EnvConfig, states: GameState, obs, before,
+                 respawn_main_during_obs: bool, auto_reset: bool):
+    """Post-frame tail of a step: env.finish_step (main respawn, the mode's
+    respawn / termination, rewards), then auto-reset
+    (agarcl_tpu/ops/fused_step.py _finish_step)."""
+    states, rewards, dones = finish_step(cfg, states, before,
+                                         respawn_main_during_obs)
+    if auto_reset:
+        states = reset_done(cfg, states, dones)
+    return states, obs, rewards, dones

@@ -58,6 +58,12 @@ SPLIT_PLAN = [
 ]
 N_STATE_PLANES = sum(2 if k in ("v2", "v2p", "v2c") else 1
                      for _, k in SPLIT_PLAN)
+# field name -> its plane index, or its (x, y) plane indices
+PLANE_INDEX = {}
+for _name, _kind in SPLIT_PLAN:
+    _i = sum(len(v) for v in PLANE_INDEX.values())
+    PLANE_INDEX[_name] = ((_i, _i + 1) if _kind in ("v2", "v2p", "v2c")
+                          else (_i,))
 
 launches = 0          # K1 launches (the kernel path of multi_step_raw)
 plain_calls = 0       # multi_step_raw_plain calls

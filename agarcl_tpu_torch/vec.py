@@ -1,19 +1,26 @@
 """Batched lockstep environments (counterpart of vec.py).
 
-VecEnv(cfg, num_envs, obs_type="ram"|"none", backend="torch"|"cuda",
-device=...):
+VecEnv(cfg, num_envs, obs_type="ram"|"screen"|"none", backend="cuda",
+device="cuda", obs_config=None, auto_reset=False,
+respawn_main_during_obs=False). It runs on the card unless the caller asks
+for the CPU (backend="torch", device="cpu"); without a CUDA device a card
+run raises.
 
-- backend="torch" runs the plain engine (engine_tick plus ram_frame) on any
-  device, cpu by default;
 - backend="cuda" runs the hand-written kernels: K1, the multi-step tick
-  (ops/fused_tick.py), on resident (feature, N) planes, and K2, the RAM
-  frame (ops/fused_obs.py), for the reset observation. It needs a CUDA
-  device and raises without one; nothing falls back to the CPU or to the
-  plain version.
+  (ops/fused_tick.py), K2, the RAM frame (ops/fused_obs.py), and K3, the
+  screen frame (ops/fused_screen.py). RAM and no observations run as one
+  K1 call per multi_step on resident (feature, N) planes. Screen
+  observations run k x (K1 with k=1, then K3) on planes converted once per
+  call; with auto_reset, respawn_main_during_obs or mode 0's respawn they
+  go step by step through a GameState (ops/fused_step.py::fused_env_step).
+  Nothing falls back to the CPU or to the plain version.
+- backend="torch" runs the plain engine (engine_tick) and the plain frames
+  (obs/ram.py::ram_frame; ops/fused_screen.py::frame_plain) on any device.
 
-Shapes follow the JAX package: reset obs (N, A, R); multi_step obs
-(k, N, 1, A, R) f32, rewards (k, N, A) f32, dones (k, N, A) bool; step
-returns them without the k axis.
+Shapes follow the JAX package: reset obs (N, A, R) or (N, A, S, S, C);
+multi_step obs (k, N, 1, A, ...) (screen: uint8, or a k-tuple of
+(N, 1, A, S, S, C) with stack_obs=False), rewards (k, N, A) f32, dones
+(k, N, A) bool; step returns them without the k axis.
 """
 
 from __future__ import annotations
@@ -22,98 +29,155 @@ import torch
 
 from agarcl_tpu_torch.config import EnvConfig
 from agarcl_tpu_torch.engine.tick import check_supported
-from agarcl_tpu_torch.env import env_reset, env_step, reset_seeds
+from agarcl_tpu_torch.env import env_reset, env_step, reset_done, reset_seeds
 from agarcl_tpu_torch.obs.ram import RamObsConfig, ram_frame
+from agarcl_tpu_torch.obs.screen import ScreenObsConfig, check_circle_mode
 from agarcl_tpu_torch.ops import fused_obs, fused_step
+from agarcl_tpu_torch.ops import fused_screen as FS
 from agarcl_tpu_torch.ops import fused_tick as FT
 from agarcl_tpu_torch.state import GameState
 
 
 class VecEnv:
     def __init__(self, cfg: EnvConfig, num_envs: int, obs_type: str = "ram",
-                 backend: str = "torch", device=None, obs_config=None):
-        if obs_type not in ("ram", "none"):
+                 backend: str = "cuda", device=None, obs_config=None,
+                 auto_reset: bool = False,
+                 respawn_main_during_obs: bool = False):
+        if obs_type not in ("ram", "screen", "none"):
             raise ValueError(f"obs_type {obs_type!r} is not ported yet "
-                             "(ram and none are)")
+                             "(ram, screen and none are)")
         if backend not in ("torch", "cuda"):
             raise ValueError(f"unknown backend {backend!r}")
         check_supported(cfg)
+        device = torch.device(device or "cuda")
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("VecEnv runs on a CUDA device and none is "
+                               "available (pass backend='torch', "
+                               "device='cpu' to run the plain engine on the "
+                               "CPU)")
+        self.ocfg = None
+        if obs_type == "ram":
+            self.ocfg = obs_config or RamObsConfig()
+        elif obs_type == "screen":
+            self.ocfg = obs_config or ScreenObsConfig()
+            check_circle_mode(self.ocfg)
+        self._per_step = (auto_reset or respawn_main_during_obs
+                          or cfg.mode_spec.respawn_all)
         if backend == "cuda":
-            if not torch.cuda.is_available():
-                raise RuntimeError("backend='cuda' needs a CUDA device and "
-                                   "none is available")
-            device = torch.device(device or "cuda")
             if device.type != "cuda":
                 raise ValueError("backend='cuda' runs on a CUDA device")
-            if not fused_step.supports_multi(cfg, obs_type):
+            fits = (FT.supports(cfg) if obs_type == "screen"
+                    else fused_step.supports_multi(cfg, obs_type)
+                    and not self._per_step)
+            if not fits:
                 raise NotImplementedError(
-                    "the cuda backend runs the multi-step tick kernel, which "
-                    "this configuration does not fit")
+                    "the cuda backend runs the tick kernel, which this "
+                    "configuration does not fit")
+            if obs_type == "screen" and self.ocfg.num_frames != 1:
+                raise NotImplementedError(
+                    "the tick kernel runs whole steps: num_frames > 1 is "
+                    "not ported to the cuda backend")
         self.cfg = cfg
         self.num_envs = num_envs
         self.obs_type = obs_type
         self.backend = backend
-        self.device = torch.device(device or "cpu")
-        self.ocfg = (obs_config or RamObsConfig()) if obs_type == "ram" \
-            else None
+        self.device = device
+        self.auto_reset = auto_reset
+        self.respawn_main_during_obs = respawn_main_during_obs
+
+    def _frame(self, states: GameState):
+        """(N, A, ...) observation of a GameState, or None."""
+        cuda = self.backend == "cuda"
+        if self.obs_type == "ram":
+            if cuda:
+                return fused_obs.fused_ram_obs(self.cfg, self.ocfg,
+                                               FT.to_kernel_arrays(states))
+            return ram_frame(self.cfg, self.ocfg, states)
+        if self.obs_type == "screen":
+            frame = FS.fused_screen_frame if cuda else FS.frame_plain
+            return frame(self.cfg, self.ocfg, FT.to_kernel_arrays(states))
+        return None
 
     def reset(self, seed: int = 0):
-        """(states, obs (N, A, R) | None); per-env seeds as
+        """(states, obs (N, A, ...) | None); per-env seeds as
         agarcl_tpu/vec.py:207-208."""
-        seeds = reset_seeds(self.num_envs, seed, self.device)
-        states = env_reset(self.cfg, seeds)
-        obs = None
-        if self.ocfg is not None:
-            if self.backend == "cuda":
-                obs = fused_obs.fused_ram_obs(self.cfg, self.ocfg,
-                                              FT.to_kernel_arrays(states))
-            else:
-                obs = ram_frame(self.cfg, self.ocfg, states)
-        return states, obs
+        states = env_reset(self.cfg, reset_seeds(self.num_envs, seed,
+                                                 self.device))
+        return states, self._frame(states)
 
     def _actions(self, actions) -> torch.Tensor:
         a = torch.as_tensor(actions, dtype=torch.float32, device=self.device)
         return a.reshape(self.num_envs, self.cfg.num_agents, 3)
 
     def step(self, states, actions):
-        """One env step: (states, obs (N, 1, A, R) | None, rewards (N, A),
+        """One env step: (states, obs (N, 1, A, ...) | None, rewards (N, A),
         dones (N, A))."""
-        states, obs, r, d = self.multi_step(states, actions, 1)
+        states, obs, r, d = self.multi_step(states, actions, 1,
+                                            stack_obs=False)
         return states, (obs[0] if obs is not None else None), r[0], d[0]
 
-    def multi_step(self, states, actions, k: int):
-        """k env steps with the same actions; `states` is a GameState or a
-        ResidentState (from make_resident or a previous resident call),
-        and the result has the same kind."""
+    def multi_step(self, states, actions, k: int, stack_obs: bool = True):
+        """k env steps with the same actions; `states` is a GameState or,
+        for ram and none observations, a ResidentState (from make_resident
+        or a previous resident call), and the result has the same kind.
+        stack_obs=False returns screen or ram frames as a k-tuple."""
         actions = self._actions(actions)
         if isinstance(states, fused_step.ResidentState):
             step = (FT.multi_step_raw if self.backend == "cuda"
                     else FT.multi_step_raw_plain)
             return fused_step.multi_step_resident(
                 self.cfg, states, actions, k, self.ocfg, step=step)
-        if self.backend == "cuda":
+        if self.backend == "cuda" and not self._per_step:
             res = fused_step.to_resident(self.cfg, states)
             res, obs, r, d = fused_step.multi_step_resident(
-                self.cfg, res, actions, k, self.ocfg)
+                self.cfg, res, actions, k, self.ocfg, stack_obs=stack_obs)
+            if not stack_obs and self.obs_type == "ram":
+                obs = tuple(obs)
             return fused_step.from_resident(self.cfg, res), obs, r, d
         obs, rs, ds = [], [], []
         for _ in range(k):
-            states, r, d = env_step(self.cfg, states, actions)
-            if self.ocfg is not None:
-                obs.append(ram_frame(self.cfg, self.ocfg, states)[:, None])
+            if self.backend == "cuda":
+                states, o, r, d = fused_step.fused_env_step(
+                    self.cfg, states, actions, self.ocfg, 1, self.auto_reset,
+                    self.respawn_main_during_obs)
+            else:
+                states, o, r, d = self._plain_step(states, actions)
+            obs.append(o)
             rs.append(r)
             ds.append(d)
-        return (states, torch.stack(obs) if obs else None, torch.stack(rs),
-                torch.stack(ds))
+        if self.ocfg is None:
+            obs = None
+        elif stack_obs:
+            obs = torch.stack(obs)
+        else:
+            obs = tuple(obs)
+        return states, obs, torch.stack(rs), torch.stack(ds)
+
+    def _plain_step(self, states, actions):
+        nf = self.ocfg.num_frames if self.obs_type == "screen" else 1
+        obs_fn = self._frame if self.ocfg is not None else None
+        out = env_step(self.cfg, states, actions,
+                       self.respawn_main_during_obs, obs_fn=obs_fn,
+                       num_frames=nf)
+        if obs_fn is None:
+            states, r, d = out
+            o = None
+        else:
+            states, o, r, d = out
+        if self.auto_reset:
+            states = reset_done(self.cfg, states, d)
+        return states, o, r, d
 
     def supports_resident(self) -> bool:
-        return fused_step.supports_multi(self.cfg, self.obs_type)
+        return (fused_step.supports_multi(self.cfg, self.obs_type)
+                and not self._per_step)
 
     def make_resident(self, states: GameState) -> fused_step.ResidentState:
         if not self.supports_resident():
             raise NotImplementedError(
                 "resident state needs a multi-step-tick configuration with "
-                "ram or none observations and no mode-0 respawn")
+                "ram or none observations, no auto_reset, no "
+                "respawn_main_during_obs and no mode-0 respawn")
         return fused_step.to_resident(self.cfg, states)
 
     def materialize(self, states) -> GameState:

@@ -2,11 +2,12 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path (agarcl_tpu_torch) at full size: the
-bench.py default configuration (mode 4, arena 350, 500 pellets, 10
-viruses, 4 ticks per step, delta-mass reward) at 8192 envs with a RAM
-frame every step, through VecEnv(backend="cuda"): reset, make_resident,
-multi_step(k=40). Phases, one line each:
+Drives the port's two main paths (agarcl_tpu_torch) at full size, in the
+bench.py game (mode 4, arena 350, 500 pellets, 10 viruses, 4 ticks per
+step, delta-mass reward) at 8192 envs through VecEnv on the card: the RAM
+path (RAM frame every step; reset, make_resident, multi_step(k=40)) and the
+screen path (the task suite's 128 x 128 agent-view screen every step;
+reset, multi_step(k=10)). Phases, one line each:
 
   1. toolchain: GPU name and power limit, torch and CUDA versions, nvcc,
      kernel build time;
@@ -21,9 +22,22 @@ multi_step(k=40). Phases, one line each:
   5. throughput in env-steps/s for the kernel path and the plain "torch"
      backend on the same card;
   6. K1 alone, timed with CUDA events, with and without the RAM frame at
-     4096 to 32768 envs: the frame's share and the launch-shape scaling.
+     4096 to 32768 envs: the frame's share and the launch-shape scaling;
+  7. K3 (screen kernel) against its plain version on the card, 0 differing
+     pixels: 8192 envs after 3 steps at S=128 agent view and S=84 natural
+     RGB, a heavy-cell state (mass 400+ beside viruses) and a two-player
+     state (other players drawn);
+  8. the screen main path: reset + multi_step(k=10) launches K1 10 times
+     and K3 11 times and no plain version, (10, 8192, 1, 1, 128, 128, 4)
+     uint8 frames, finite rewards; one k=10 call of the plain "torch"
+     backend from the same state gives the same rewards, dones and frames;
+     then the per-step composition (auto_reset, respawn_main_during_obs,
+     64 dead main players) for 2 steps against the torch backend;
+  9. times: screen-path env-steps/s for both backends, K3 alone per frame
+     (CUDA events) against its bound, K1 at k=1 per step.
 
-Then a JSON line describing each kernel and, last, the device JSON line.
+Then a JSON line describing each kernel, the GPU line and, last, the
+device JSON line.
 Any failure raises and exits non-zero. Without a CUDA device the script
 exits non-zero before printing any result; it never falls back to the CPU.
 """
@@ -46,6 +60,10 @@ TOL_F32_STATE = 2e-3                     # tests/test_fused_tick.py:30-38
 TOL_REWARD = 1e-5
 MAX_DIVERGED_SHARE = 0.005               # of envs after 8 and 40 steps
 PROBE_ENVS = (4096, 8192, 16384, 32768)
+S_SCREEN = 128                           # bench/tasks_configs/mode_*.json
+K_SCREEN = 10                            # bench.py:76-77, non-RAM obs
+HBM_BYTES_PER_S = 3.35e12                # H100 SXM data sheet
+F32_OPS_PER_S = 67e12                    # f32 outside the tensor cores
 
 
 def _gpu_line() -> str:
@@ -128,6 +146,164 @@ def _compare_runs(cfg, out_k, out_p, max_bad: int, label: str):
     return n_bad, f32_err, obs_err, rew_err
 
 
+def _event_ms(fn, reps: int) -> float:
+    """Mean CUDA-event ms of fn over `reps` calls, after one warm call."""
+    fn()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(reps):
+        fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / reps
+
+
+def _bound_ms(nbytes: float, ops: float):
+    """(least ms the card could take, what binds): bytes over the HBM rate
+    against f32 operations over the f32 peak."""
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    return 1e3 * max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
+
+
+def _tick_work(cfg, ocfg, n: int, k: int):
+    """Bytes and f32 operations of one K1 call of k steps: every state
+    plane read and written once, the actions read, the RAM frames (with a
+    RamObsConfig) and (mass, alive) rows written; counted operations are
+    the pellet-eat distance tests of one cell per tick (6 each) and the
+    frame's nearest-key scans (8 per pellet or virus key and pick) — a
+    lower bound of the work."""
+    from agarcl_tpu_torch.obs.ram import ram_size
+    from agarcl_tpu_torch.ops import fused_tick as FT
+    state = sum(r * (1 if dt == torch.bool else 4)
+                for _, r, dt in FT._plane_specs(cfg))
+    frame = 4 * ram_size(cfg, ocfg) if ocfg is not None else 0
+    nbytes = n * (2 * state + 12 + k * (frame + 8 * cfg.num_players))
+    per_step = cfg.ticks_per_step * cfg.pellet_capacity * 6
+    if ocfg is not None:
+        per_step += 8 * (ocfg.num_pellets * cfg.pellet_capacity
+                         + ocfg.num_viruses * cfg.virus_capacity)
+    return nbytes, n * k * per_step
+
+
+def _ram_work(cfg, ocfg, n: int):
+    """Bytes and f32 operations of one K2 frame: the cell, pellet and virus
+    planes it reads once, the frame written, 8 operations per key of the
+    nearest-pellet and nearest-virus scans."""
+    from agarcl_tpu_torch.obs.ram import ram_size
+    cells = cfg.num_players * cfg.max_cells * (5 * 4 + 1)
+    per_env = (cells + 4 * cfg.pellet_capacity + 13 * cfg.virus_capacity
+               + 4 * cfg.num_agents * ram_size(cfg, ocfg))
+    ops = 8 * (ocfg.num_pellets * cfg.pellet_capacity
+               + ocfg.num_viruses * cfg.virus_capacity)
+    return n * per_env, n * ops
+
+
+def _screen_work(cfg, ocfg, planes):
+    """Bytes and f32 operations of one K3 frame on these planes: the cell,
+    pellet, food and virus planes read once and the frame written once;
+    per env 22 operations per pixel row or column for the pixel-centre
+    tables and grid flags, one per pixel for the grid, and 5 per pixel test
+    over each live entity's bounding box (what this state's entities
+    need)."""
+    from agarcl_tpu_torch.ops import fused_screen as FS
+    n = planes[0].shape[-1]
+    S, ch = ocfg.screen_len, 4 if ocfg.agent_view else 3
+    read = (cfg.num_players * cfg.max_cells * 13 + 4 * cfg.pellet_capacity
+            + 9 * cfg.food_capacity + 13 * cfg.virus_capacity)
+    nbytes = n * (read + S * S * ch)
+    sec = FS.screen_sections(cfg, planes)
+    half = sec["params"][:, 2:3]
+    pitch = 2.0 * half / S
+    tests = torch.zeros((), dtype=torch.float64, device=half.device)
+    for c in ("p", "f", "m", "o", "v"):
+        r2 = sec[c + "r2"]
+        live = r2 >= 0
+        r = torch.sqrt(r2.clamp(min=0))
+        cam = sec["params"][:, 0:2]
+        side = []
+        for ax, j in (("x", 0), ("y", 1)):
+            w0 = cam[:, j:j + 1] - half + pitch / 2
+            lo = torch.ceil((sec[c + ax] - r - w0) / pitch).clamp(0, S)
+            hi = torch.floor((sec[c + ax] + r - w0) / pitch).clamp(-1, S - 1)
+            side.append((hi - lo + 1).clamp(min=0))
+        tests += (side[0] * side[1] * live).double().sum()
+    ops = n * (22 * S + S * S) + 5 * tests.item()
+    return nbytes, ops
+
+
+def _heavy_state(cfg, n: int, dev):
+    """Cells of mass 400-2500 beside viruses, then 4 plain steps of splits
+    and pops."""
+    from agarcl_tpu_torch.env import env_reset, reset_seeds
+    from agarcl_tpu_torch.vec import VecEnv
+    s = env_reset(cfg, reset_seeds(n, 3, dev))
+    cm = s.cell_mass.clone()
+    cm[:, 0, 0] = 400 + 300 * (torch.arange(n, device=dev) % 8)
+    cp = s.cell_pos.clone()
+    cp[:, 0, 0] = 175.0
+    vp = s.virus_pos.clone()
+    vp[: n // 2, 0] = 178.0
+    s = s.replace(cell_mass=cm, cell_pos=cp, virus_pos=vp)
+    env = VecEnv(cfg, n, "none", backend="torch", device=dev)
+    s, _, _, _ = env.multi_step(s, _random_actions(n, dev), 4)
+    return s
+
+
+def _two_player_state(duel, s):
+    """A two-player (mode 7 layout) state: player 0 as in s, player 1 its
+    copy shifted by (12, -7) at half the mass; the world of s."""
+    from agarcl_tpu_torch.state import zero_state
+    z = zero_state(duel, s.num_envs, s.device)
+    cp, cm, ca = z.cell_pos.clone(), z.cell_mass.clone(), z.cell_alive.clone()
+    shift = torch.tensor([12.0, -7.0], device=s.device)
+    cp[:, 0], cp[:, 1] = s.cell_pos[:, 0], s.cell_pos[:, 0] + shift
+    cm[:, 0], cm[:, 1] = s.cell_mass[:, 0], s.cell_mass[:, 0] // 2
+    ca[:, 0], ca[:, 1] = s.cell_alive[:, 0], s.cell_alive[:, 0]
+    world = {f: getattr(s, f) for f in (
+        "pellet_key", "virus_pos", "virus_mass", "virus_alive", "food_pos",
+        "food_alive")}
+    return z.replace(cell_pos=cp, cell_mass=cm, cell_alive=ca, **world)
+
+
+def _device_profile(fn, dev):
+    """(device-busy share of fn's wall time, [(name, ms)] of the three
+    largest device-time entries) from torch.profiler, or None when the
+    profiler sees no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize(dev)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize(dev)
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    rows = [(e.key, getattr(e, "self_device_time_total", 0.0))
+            for e in prof.key_averages()]
+    busy = sum(t for _, t in rows)
+    if busy <= 0:
+        return None
+    top = sorted(rows, key=lambda r: -r[1])[:3]
+    return busy / wall_us, [(k[:40], t / 1e3) for k, t in top]
+
+
+def _ptxas_summary(log: str) -> str:
+    """'kernel: N registers, M bytes smem' for each kernel in a ptxas -v
+    report."""
+    out, name = [], None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+            for short in ("multi_step_kernel", "ram_frame_kernel",
+                          "screen_kernel"):
+                if short in name:
+                    name = short
+        elif "Used" in line and name:
+            out.append(f"{name}: {line.split(':', 1)[1].strip()}")
+            name = None
+    return "; ".join(out) or "no ptxas report (cached build)"
+
+
 def _k1_event_ms(cfg, n: int, ocfg, k: int, dev, reps: int = 3) -> float:
     """Median CUDA-event ms of one K1 call of k steps at n envs, after one
     warm call from reset(0)."""
@@ -155,7 +331,9 @@ def main() -> int:
         return 2
     from agarcl_tpu_torch import EnvConfig
     from agarcl_tpu_torch.obs.ram import RamObsConfig, ram_frame
+    from agarcl_tpu_torch.obs.screen import ScreenObsConfig
     from agarcl_tpu_torch.ops import _build, fused_obs, fused_step
+    from agarcl_tpu_torch.ops import fused_screen as FS
     from agarcl_tpu_torch.ops import fused_tick as FT
     from agarcl_tpu_torch.vec import VecEnv
 
@@ -165,6 +343,8 @@ def main() -> int:
                     num_pellets=500, num_viruses=10, reward_type=True,
                     mode=4)
     ocfg = RamObsConfig(num_pellets=32, num_viruses=8)
+    DUEL = EnvConfig(num_agents=1, ticks_per_step=4, arena_size=350,
+                     num_pellets=500, num_viruses=10, mode=7)
     N, k = N_ENVS, K_STEPS
 
     # --- 1. toolchain ------------------------------------------------------
@@ -176,7 +356,8 @@ def main() -> int:
              else f"loaded a cached build in {load_s:.2f} s")
     nvcc = _build.nvcc_version(_build._nvcc()).splitlines()[-1]
     print(f"[1 toolchain] gpu: {gpu} | torch {torch.__version__} cuda "
-          f"{torch.version.cuda} | {nvcc} | kernels {built}", flush=True)
+          f"{torch.version.cuda} | {nvcc} | kernels {built} | ptxas: "
+          f"{_ptxas_summary(_build.build_log)}", flush=True)
 
     acts = _random_actions(N, dev)
 
@@ -307,17 +488,184 @@ def main() -> int:
               f"{100.0 * (1 - without_ms / with_ms):.1f}% | {gpu}",
               flush=True)
 
+    # --- 7. K3 against its plain version ----------------------------------
+    scr = ScreenObsConfig(S_SCREEN, agent_view=True)
+    k3_states = [("played", cfg, s2),
+                 ("heavy", cfg, _heavy_state(cfg, N, dev)),
+                 ("two players", DUEL, _two_player_state(DUEL, s2))]
+    k3_err = 0
+    for label, c, st in k3_states:
+        planes = FT.to_kernel_arrays(st)
+        for oc in (scr, ScreenObsConfig(84, agent_view=False)):
+            got = FS.fused_screen_frame(c, oc, planes)
+            ref = FS.frame_plain(c, oc, planes)
+            bad = int((got != ref).any(-1).sum())
+            k3_err = max(k3_err, (got.int() - ref.int()).abs().max().item())
+            colours = torch.unique(ref.reshape(-1, ref.shape[-1]),
+                                   dim=0).shape[0]
+            _check(bad == 0, f"K3 vs plain, {label}, S={oc.screen_len}: "
+                   f"{bad} pixels differ")
+            print(f"[7 K3 screen] {label}, {N} envs, S={oc.screen_len} "
+                  f"{'agent view' if oc.agent_view else 'natural RGB'}: 0 "
+                  f"of {N * oc.screen_len ** 2} pixels differ from the "
+                  f"plain frame ({colours} colours drawn)", flush=True)
+        if label == "two players":
+            _check(bool((ref[..., 1] == 255).any()), "other player drawn")
+    planes2 = FT.to_kernel_arrays(s2)
+    k3_ms = _event_ms(lambda: FS.fused_screen_frame(cfg, scr, planes2), 10)
+    k3_plain_ms = 1e3 * _timed(lambda: FS.frame_plain(cfg, scr, planes2),
+                               dev, 2)
+    k3_bytes, k3_ops = _screen_work(cfg, scr, planes2)
+    k3_bound = _bound_ms(k3_bytes, k3_ops)
+
+    # --- 8. the screen main path ---------------------------------------------
+    senv = VecEnv(cfg, N, "screen", obs_config=scr)
+    penv = VecEnv(cfg, N, "screen", backend="torch", device=dev,
+                  obs_config=scr)
+    FT.launches = FT.plain_calls = 0
+    fused_obs.launches = fused_obs.plain_calls = 0
+    FS.launches = FS.plain_calls = 0
+    st0, sobs0 = senv.reset(0)
+    st, sobs, srew, sdone = senv.multi_step(st0, acts, K_SCREEN)
+    torch.cuda.synchronize(dev)
+    s_k1, s_k3 = FT.launches, FS.launches
+    s_plain = FT.plain_calls + fused_obs.plain_calls + FS.plain_calls
+    _check(s_k1 == K_SCREEN and s_k3 == K_SCREEN + 1 and s_plain == 0,
+           f"screen path launches K1 {K_SCREEN}x, K3 {K_SCREEN + 1}x, plain "
+           f"0x (K1 {s_k1}, K3 {s_k3}, plain {s_plain})")
+    _check(tuple(sobs0.shape) == (N, 1, S_SCREEN, S_SCREEN, 4),
+           "screen reset obs shape")
+    _check(tuple(sobs.shape) == (K_SCREEN, N, 1, 1, S_SCREEN, S_SCREEN, 4)
+           and sobs.dtype == torch.uint8, "screen multi_step obs shape")
+    _check(bool(torch.isfinite(srew).all()), "finite screen rewards")
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    pst, pobs, prew, pdone = penv.multi_step(st0, acts, K_SCREEN)
+    torch.cuda.synchronize(dev)
+    prew.sum().item()
+    t_splain = time.perf_counter() - t0
+    same = ~_int_mismatch_envs(st, pst)
+    n_div = int((~same).sum())
+    _check(n_div <= max_bad, f"screen path: at most {max_bad} envs diverge "
+           f"({n_div})")
+    s_rew_err = (srew[:, same] - prew[:, same]).abs().max().item()
+    _check(s_rew_err <= TOL_REWARD, f"screen rewards within 1e-5 "
+           f"({s_rew_err})")
+    _check(bool(torch.equal(sdone[:, same], pdone[:, same])),
+           "screen dones equal")
+    s_obs_bad = int((sobs[:, same] != pobs[:, same]).any(-1).sum())
+    _check(s_obs_bad == 0, f"screen frames equal ({s_obs_bad} pixels)")
+    print(f"[8 screen path] reset + multi_step(k={K_SCREEN}) at {N} envs, "
+          f"S={S_SCREEN} agent view: K1 launches {s_k1}, K3 launches "
+          f"{s_k3}, plain calls {s_plain}; obs {tuple(sobs.shape)} uint8; "
+          f"against the torch backend from the same state: {n_div} envs "
+          f"diverge, in the rest max reward err {s_rew_err:.3g}, dones "
+          f"equal, 0 pixels differ; mean reward per step "
+          f"{srew.mean().item():.4f}", flush=True)
+    del sobs, pobs, st, pst, srew, prew, sdone, pdone
+    # the per-step composition (fused_env_step), with 64 dead main players
+    flags = dict(obs_config=scr, auto_reset=True,
+                 respawn_main_during_obs=True)
+    fenv = VecEnv(cfg, N, "screen", **flags)
+    fpenv = VecEnv(cfg, N, "screen", backend="torch", device=dev, **flags)
+    ca = st0.cell_alive.clone()
+    ca[:64] = False
+    st0 = st0.replace(cell_alive=ca)
+    k1_0, k3_0 = FT.launches, FS.launches
+    fst, fobs, frew, fdone = fenv.multi_step(st0, acts, 2)
+    _check((FT.launches - k1_0, FS.launches - k3_0) == (2, 2),
+           "per-step path launches K1 and K3 once a step")
+    pst, pobs, prew, pdone = fpenv.multi_step(st0, acts, 2)
+    same = ~_int_mismatch_envs(fst, pst)
+    f_div = int((~same).sum())
+    _check(f_div <= max_bad, f"per-step path: at most {max_bad} envs diverge "
+           f"({f_div})")
+    f_rew_err = (frew[:, same] - prew[:, same]).abs().max().item()
+    _check(f_rew_err <= TOL_REWARD and bool(torch.equal(fdone[:, same],
+                                                        pdone[:, same])),
+           f"per-step path rewards within 1e-5 ({f_rew_err}), dones equal")
+    f_obs_bad = int((fobs[:, same] != pobs[:, same]).any(-1).sum())
+    _check(f_obs_bad == 0, f"per-step path frames equal ({f_obs_bad} pixels)")
+    _check(bool((frew[0, :64] >= 25).all()),
+           "dead main players respawned in the first step (reward >= 25)")
+    print(f"[8 per-step path] auto_reset + respawn_main_during_obs, 64 dead "
+          f"main players, multi_step(k=2) at {N} envs: K1 and K3 once a "
+          f"step; against the torch backend {f_div} envs diverge, in the "
+          f"rest max reward err {f_rew_err:.3g}, dones equal, 0 pixels "
+          f"differ", flush=True)
+    del fobs, pobs, fst, pst, st0
+
+    # --- 9. screen-path times -----------------------------------------------
+    s, _ = senv.reset(0)
+    s, o, rw, _ = senv.multi_step(s, acts, K_SCREEN)             # warm
+    rw.sum().item()
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        for _ in range(4):
+            del o
+            s, o, rw, _ = senv.multi_step(s, acts, K_SCREEN)
+        torch.cuda.synchronize(dev)
+        rw.sum().item()
+        times.append((time.perf_counter() - t0) / 4)
+    del o
+    t_screen = statistics.median(times)
+    nat = ScreenObsConfig(84, agent_view=False)
+    k3_nat_ms = _event_ms(lambda: FS.fused_screen_frame(cfg, nat, planes2),
+                          10)
+    k3_nat_bound = _bound_ms(*_screen_work(cfg, nat, planes2))
+    prof = _device_profile(lambda: senv.multi_step(s, acts, K_SCREEN), dev)
+    k1_step_ms = _event_ms(lambda: FT.multi_step_raw(cfg, planes2, acts, 1,
+                                                     None), 10)
+    k1_step_bound = _bound_ms(*_tick_work(cfg, None, N, 1))
+    print(f"[9 screen times] {N} envs, multi_step(k={K_SCREEN}), S="
+          f"{S_SCREEN}: kernel {N * K_SCREEN / t_screen:,.0f} env-steps/s "
+          f"({1e3 * t_screen:.2f} ms/call, median of 3 runs x 4 calls); "
+          f"plain torch backend {N * K_SCREEN / t_splain:,.0f} env-steps/s "
+          f"({1e3 * t_splain:.2f} ms/call, 1 call: phase 8's); K3 "
+          f"{k3_ms:.3f} ms/frame (CUDA events, mean of 10), bound "
+          f"{k3_bound[0]:.3f} ms by {k3_bound[1]} ({k3_bytes / 1e6:.1f} MB, "
+          f"{k3_ops / 1e9:.3f} G f32 ops), {100 * k3_bound[0] / k3_ms:.1f}% "
+          f"of bound; plain frame {k3_plain_ms:.2f} ms; K3 at S=84 natural "
+          f"RGB {k3_nat_ms:.3f} ms/frame, bound {k3_nat_bound[0]:.3f} ms by "
+          f"{k3_nat_bound[1]}; K1 k=1 {k1_step_ms:.3f} ms/step, bound "
+          f"{k1_step_bound[0]:.3f} ms by {k1_step_bound[1]} | {gpu}",
+          flush=True)
+    busy = ("not measured (the profiler saw no device time)" if prof is None
+            else f"{100 * prof[0]:.1f}% of the call's wall time; largest: "
+            + ", ".join(f"{k} {t:.2f} ms" for k, t in prof[1]))
+    print(f"[9 screen profile] one multi_step(k={K_SCREEN}) under "
+          f"torch.profiler: device busy {busy}", flush=True)
+
+    k1_bytes, k1_ops = _tick_work(cfg, ocfg, N, k)
+    k2_bytes, k2_ops = _ram_work(cfg, ocfg, N)
+    k1_bound, k2_bound = _bound_ms(k1_bytes, k1_ops), _bound_ms(k2_bytes,
+                                                                 k2_ops)
     print(json.dumps({"kernels": [
         {"name": "multi_step_tick", "route": "cuda",
          "source": "agarcl_tpu_torch/csrc/tick.cu",
          "replaces": "agarcl_tpu/ops/fused_tick.py:163",
-         "launches": k1_launches, "max_abs_err": k1_err,
-         "ms": 1e3 * t_kernel, "plain_ms": 1e3 * t_plain},
+         "launches": k1_launches + s_k1,
+         "launches_by_path": {"ram": k1_launches, "screen": s_k1},
+         "max_abs_err": k1_err,
+         "ms": 1e3 * t_kernel, "plain_ms": 1e3 * t_plain,
+         "bound_ms": k1_bound[0], "bound_by": k1_bound[1],
+         "library_ms": None},
         {"name": "ram_frame", "route": "cuda",
          "source": "agarcl_tpu_torch/csrc/ram_frame.cu",
          "replaces": "agarcl_tpu/ops/fused_obs.py:190",
          "launches": k2_launches, "max_abs_err": k2_err,
-         "ms": k2_ms, "plain_ms": k2_plain_ms},
+         "ms": k2_ms, "plain_ms": k2_plain_ms,
+         "bound_ms": k2_bound[0], "bound_by": k2_bound[1],
+         "library_ms": None},
+        {"name": "screen_frame", "route": "cuda",
+         "source": "agarcl_tpu_torch/csrc/screen.cu",
+         "replaces": "agarcl_tpu/ops/fused_screen.py:196",
+         "launches": s_k3, "max_abs_err": k3_err,
+         "ms": k3_ms, "plain_ms": k3_plain_ms,
+         "bound_ms": k3_bound[0], "bound_by": k3_bound[1],
+         "library_ms": None},
     ]}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {

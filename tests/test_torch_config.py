@@ -55,9 +55,15 @@ def test_port_runs_without_jax():
         "from agarcl_tpu_torch.vec import VecEnv\n"
         "cfg = agarcl_tpu_torch.EnvConfig(num_agents=1, ticks_per_step=2,"
         " arena_size=80, num_pellets=20, num_viruses=2, mode=4)\n"
-        "env = VecEnv(cfg, 2, 'ram', backend='torch')\n"
+        "env = VecEnv(cfg, 2, 'ram', backend='torch', device='cpu')\n"
         "s, obs = env.reset(0)\n"
         "s, obs, r, d = env.step(s, torch.zeros(2, 1, 3))\n"
+        "from agarcl_tpu_torch.obs.screen import ScreenObsConfig\n"
+        "scr = VecEnv(cfg, 2, 'screen', backend='torch', device='cpu',"
+        " obs_config=ScreenObsConfig(16, agent_view=True))\n"
+        "s2, o2 = scr.reset(0)\n"
+        "s2, o2, r2, d2 = scr.step(s2, torch.zeros(2, 1, 3))\n"
+        "assert o2.shape == (2, 1, 1, 16, 16, 4), o2.shape\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in"
         " ('jax', 'jaxlib', 'flax', 'agarcl_tpu')]\n"
         "assert not bad, bad\n"

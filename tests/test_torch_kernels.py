@@ -9,9 +9,11 @@ import torch
 from agarcl_tpu_torch import EnvConfig
 from agarcl_tpu_torch.env import env_reset, reset_seeds
 from agarcl_tpu_torch.obs.ram import RamObsConfig, ram_frame
+from agarcl_tpu_torch.obs.screen import ScreenObsConfig
 from agarcl_tpu_torch.ops import _build, fused_obs, fused_step
+from agarcl_tpu_torch.ops import fused_screen as FS
 from agarcl_tpu_torch.ops import fused_tick as FT
-from agarcl_tpu_torch.state import STATE_FIELDS
+from agarcl_tpu_torch.state import STATE_FIELDS, zero_state
 from agarcl_tpu_torch.vec import VecEnv
 
 CFG = EnvConfig(num_agents=1, ticks_per_step=4, arena_size=200,
@@ -41,6 +43,20 @@ def test_cuda_backend_raises_without_gpu():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="CUDA"):
         VecEnv(CFG, 4, "ram", backend="cuda")
+
+
+def test_default_vecenv_runs_on_the_card():
+    """The default backend is "cuda" on a CUDA device; without one the
+    constructor raises instead of running on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    for obs_type in ("screen", "ram"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            VecEnv(CFG, 4, obs_type)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        VecEnv(CFG, 4, "screen", backend="torch")
+    env = VecEnv(CFG, 4, "screen", backend="torch", device="cpu")
+    assert env.device.type == "cpu"
 
 
 def test_multi_step_wrapper_validates_before_building(no_build):
@@ -93,6 +109,116 @@ def test_cpu_planes_run_the_plain_version(no_build):
     assert (info[:, :, 1] == 1.0).all() and (info[:, :, 0] >= 25).all()
 
 
+def test_screen_wrapper_validates_before_building(no_build):
+    planes = _planes()
+    scr = ScreenObsConfig(32, agent_view=True)
+    bad = list(planes)
+    bad[25] = bad[25].float()                    # pellet_key as f32
+    with pytest.raises(TypeError, match="pellet_key"):
+        FS.fused_screen_frame(CFG, scr, bad)
+    bad = list(planes)
+    bad[21] = bad[21][:, :2]                     # cell_alive for 2 envs
+    with pytest.raises(ValueError, match="cell_alive"):
+        FS.fused_screen_frame(CFG, scr, bad)
+    with pytest.raises(NotImplementedError):
+        FS.fused_screen_frame(CFG, ScreenObsConfig(32, polygon_edges=True),
+                              planes)
+    two = EnvConfig(num_agents=2, arena_size=100, num_pellets=20,
+                    num_viruses=2, mode=4)
+    with pytest.raises(NotImplementedError):
+        FS.fused_screen_frame(two, scr, _planes(cfg=two))
+    with pytest.raises(ValueError, match="screen_len"):
+        FS.fused_screen_frame(CFG, ScreenObsConfig(FS.MAX_SCREEN + 1), planes)
+    with pytest.raises(ValueError, match="out"):
+        FS.fused_screen_frame(CFG, scr, planes,
+                              out=torch.empty(4, 1, 32, 32, 3,
+                                              dtype=torch.uint8))
+
+
+def test_screen_wrapper_cpu_planes_run_the_plain_version(no_build):
+    before = FS.launches, FS.plain_calls
+    scr = ScreenObsConfig(24, agent_view=False)
+    frame = FS.fused_screen_frame(CFG, scr, _planes())
+    assert (FS.launches, FS.plain_calls) == (before[0], before[1] + 1)
+    assert tuple(frame.shape) == (4, 1, 24, 24, 3)
+    out = torch.zeros(4, 1, 24, 24, 3, dtype=torch.uint8)
+    assert FS.fused_screen_frame(CFG, scr, _planes(), out=out) is out
+    assert torch.equal(out, frame)
+
+
+def _assert_same_steps(got, want):
+    """(states, obs, rewards, dones) of two step runs: integer state equal,
+    f32 state within 2e-3, frames equal, rewards within 1e-5, dones
+    equal."""
+    (gs, go, gr, gd), (ws, wo, wr, wd) = got, want
+    assert int(_int_mismatch(gs, ws).sum()) == 0
+    for f in STATE_FIELDS:
+        x, y = getattr(gs, f), getattr(ws, f)
+        if x.dtype.is_floating_point:
+            torch.testing.assert_close(x, y, rtol=0, atol=2e-3, msg=f)
+    assert go.shape == wo.shape and torch.equal(go, wo)
+    torch.testing.assert_close(gr, wr, rtol=0, atol=1e-5)
+    assert torch.equal(gd, wd)
+
+
+def _step_compositions_match_plain(dev, n):
+    """The kernel path's step compositions on `dev` against the plain torch
+    backend: multi_step_resident's screen loop (k x (tick with k=1, then the
+    screen frame); stacked and tuple frames) in mode 4, and fused_env_step
+    with auto_reset and respawn_main_during_obs in mode 3, from a state with
+    dead main players (respawned, charged c_death) and players over the
+    mode's mass limit (done, then reset in place)."""
+    scr = ScreenObsConfig(32, agent_view=True)
+    acts = torch.tensor([[[0.6, -0.4, 0.0]]], device=dev).expand(n, 1, 3)
+    s0 = env_reset(CFG, reset_seeds(n, 1, dev))
+    plain = VecEnv(CFG, n, "screen", backend="torch", device=dev,
+                   obs_config=scr)
+    for stack in (True, False):
+        want = plain.multi_step(s0, acts, 3, stack_obs=stack)
+        k1, k3 = FT.launches + FT.plain_calls, FS.launches + FS.plain_calls
+        res, obs, r, d = fused_step.multi_step_resident(
+            CFG, fused_step.to_resident(CFG, s0), acts, 3, scr,
+            stack_obs=stack)
+        assert (FT.launches + FT.plain_calls - k1,
+                FS.launches + FS.plain_calls - k3) == (3, 3)
+        if not stack:
+            assert isinstance(obs, tuple) and len(obs) == 3
+            obs, want = torch.stack(obs), (want[0], torch.stack(want[1]),
+                                           *want[2:])
+        assert tuple(obs.shape) == (3, n, 1, 1, 32, 32, 4)
+        _assert_same_steps((fused_step.from_resident(CFG, res), obs, r, d),
+                           want)
+    cfg3 = EnvConfig(num_agents=1, ticks_per_step=4, arena_size=200,
+                     num_pellets=150, num_viruses=6, reward_type=True, mode=3,
+                     c_death=-7)
+    s = env_reset(cfg3, reset_seeds(n, 2, dev))
+    ca, cm = s.cell_alive.clone(), s.cell_mass.clone()
+    cid, cp = s.cell_id.clone(), s.cell_pos.clone()
+    ca[:2] = False
+    cm[2, 0, :2], ca[2, 0, 1], cid[2, 0, 1] = 20000, True, 9
+    cp[2, 0, 1] = cp[2, 0, 0] + torch.tensor([30.0, 0.0], device=dev)
+    nid = s.next_cell_id.clone()
+    nid[2] = 10                     # cell ids stay unique, as K1 assumes
+    s = s.replace(cell_alive=ca, cell_mass=cm, cell_id=cid, cell_pos=cp,
+                  next_cell_id=nid)
+    plain = VecEnv(cfg3, n, "screen", backend="torch", device=dev,
+                   obs_config=scr, auto_reset=True,
+                   respawn_main_during_obs=True)
+    want = plain.multi_step(s, acts, 2)
+    outs = []
+    for _ in range(2):
+        s, *out = fused_step.fused_env_step(cfg3, s, acts, scr, 1, True, True)
+        outs.append(out)
+    got = (s, *(torch.stack(x) for x in zip(*outs)))
+    _assert_same_steps(got, want)
+    assert (want[2][0, :2] > 0).all() and bool(want[3][0, 2, 0])
+    assert int(want[0].ticks[2]) == 4 and int(want[0].ticks[3]) == 8
+
+
+def test_step_compositions_on_cpu_planes_match_plain(no_build):
+    _step_compositions_match_plain(torch.device("cpu"), 4)
+
+
 def test_failed_build_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "_lib", None)
     monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
@@ -113,6 +239,22 @@ def _eventful_state(n, dev):
     vp = s.virus_pos.clone()
     vp[: n // 2, 0] = 103.0
     return s.replace(cell_mass=cm, cell_pos=cp, virus_pos=vp)
+
+
+def _two_player_state(s):
+    """Mode-7 layout (two players): player 1 a shifted half-mass copy of
+    player 0 of s, the world of s."""
+    duel = EnvConfig(num_agents=1, ticks_per_step=4, arena_size=200,
+                     num_pellets=150, num_viruses=6, mode=7)
+    z = zero_state(duel, s.num_envs, s.device)
+    cp, cm, ca = z.cell_pos.clone(), z.cell_mass.clone(), z.cell_alive.clone()
+    cp[:, 0] = s.cell_pos[:, 0]
+    cp[:, 1] = s.cell_pos[:, 0] + torch.tensor([12.0, -7.0], device=s.device)
+    cm[:, 0], cm[:, 1] = s.cell_mass[:, 0], s.cell_mass[:, 0] // 2
+    ca[:, 0], ca[:, 1] = s.cell_alive[:, 0], s.cell_alive[:, 0]
+    world = {f: getattr(s, f) for f in ("pellet_key", "virus_pos",
+                                        "virus_mass", "virus_alive")}
+    return duel, z.replace(cell_pos=cp, cell_mass=cm, cell_alive=ca, **world)
 
 
 def _int_mismatch(a, b):
@@ -156,3 +298,26 @@ def test_multi_step_kernel_matches_plain(cuda_device):
     torch.testing.assert_close(ok, op, rtol=1e-5, atol=1e-4)
     torch.testing.assert_close(rwk, rwp, rtol=0, atol=1e-5)
     assert torch.equal(dk, dp)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("scr", [ScreenObsConfig(128, agent_view=True),
+                                 ScreenObsConfig(84, agent_view=False)])
+def test_screen_kernel_matches_plain(cuda_device, scr):
+    heavy = _eventful_state(512, cuda_device)
+    cases = [(CFG, heavy), _two_player_state(heavy)]
+    for cfg, s in cases:
+        planes = FT.to_kernel_arrays(s)
+        before = FS.launches
+        got = FS.fused_screen_frame(cfg, scr, planes)
+        assert FS.launches == before + 1
+        want = FS.frame_plain(cfg, scr, planes)
+        assert int((got != want).any(-1).sum()) == 0
+    assert bool((want[..., 1] == 255).any())           # class 5 drawn
+
+
+@pytest.mark.gpu
+def test_step_compositions_on_the_card_match_plain(cuda_device):
+    launches = FT.launches, FS.launches
+    _step_compositions_match_plain(cuda_device, 512)
+    assert (FT.launches - launches[0], FS.launches - launches[1]) == (8, 8)

@@ -53,7 +53,7 @@ def _compare_state(js, ts):
 
 def test_resident_multi_step_matches_pallas_interpret():
     cfg_j = JCfg(**KW)
-    tenv = TVec(TCfg(**KW), N, "ram", backend="torch")
+    tenv = TVec(TCfg(**KW), N, "ram", backend="torch", device="cpu")
     jenv = JVec(cfg_j, N, obs_type="ram", backend="xla", donate=False)
     ts, tobs0 = tenv.reset(5)
     js, jobs0 = jenv.reset(5)
@@ -73,7 +73,7 @@ def test_resident_multi_step_matches_pallas_interpret():
 
 @pytest.mark.parametrize("resident", [False, True])
 def test_multi_step_matches_xla_vecenv(resident):
-    tenv = TVec(TCfg(**KW), N, "ram", backend="torch")
+    tenv = TVec(TCfg(**KW), N, "ram", backend="torch", device="cpu")
     jenv = JVec(JCfg(**KW), N, obs_type="ram", backend="xla", donate=False)
     ts, _ = tenv.reset(11)
     js, _ = jenv.reset(11)
@@ -88,13 +88,13 @@ def test_multi_step_matches_xla_vecenv(resident):
 
 
 def test_step_shapes_and_obs_none():
-    tenv = TVec(TCfg(**KW), N, "ram", backend="torch")
+    tenv = TVec(TCfg(**KW), N, "ram", backend="torch", device="cpu")
     s, obs0 = tenv.reset(0)
     assert tuple(obs0.shape) == (N, 1, 231)
     s, obs, r, d = tenv.step(s, ACTS)
     assert tuple(obs.shape) == (N, 1, 1, 231)
     assert tuple(r.shape) == (N, 1) and tuple(d.shape) == (N, 1)
-    env0 = TVec(TCfg(**KW), N, "none", backend="torch")
+    env0 = TVec(TCfg(**KW), N, "none", backend="torch", device="cpu")
     s, obs0 = env0.reset(0)
     res, obs, r, d = env0.multi_step(env0.make_resident(s), ACTS, 2)
     assert obs0 is None and obs is None and tuple(r.shape) == (2, N, 1)
