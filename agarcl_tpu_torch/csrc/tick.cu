@@ -24,7 +24,8 @@
 // the RAM frame's k-nearest scans (32 x 500 key evaluations); both read
 // the env's pellet keys, 2 KB per env, which stay in L1/L2 (8192 envs x
 // 2 KB = 16 MB < 50 MB L2). The design tests cells in rank order and stops
-// at the first eater of a pellet, and never materializes the pairwise
+// after the first eater of a pellet (and the cells of equal rank), and
+// never materializes the pairwise
 // tables the TPU kernel builds. With ~6 KB of state and several KB of
 // per-thread arrays, occupancy is low; that is accepted for this first,
 // simple version.
@@ -101,7 +102,8 @@ HD void store_player(const EnvParams& p, const Planes& s, int n, int N,
   AT(s.fnext, 0) = e.fnext; AT(s.ticks, 0) = e.ticks;
 }
 
-// counting rank by id among live cells; dead cells rank after them
+// counting rank by id among live cells (state.py::cell_rank_of): cells
+// with equal ids share a rank; dead cells rank after the live ones
 HD void cell_ranks(const Cells& c, int Cc, int* rank) {
   for (int i = 0; i < Cc; i++) {
     const int ki = c.al[i] ? c.id[i] : BIG_I;
@@ -237,50 +239,86 @@ HD void prevent_overlap(const EnvParams& p, V2& pa, V2& va, V2 sa, int ma,
   pb = clamp2(p, pb, rb);
 }
 
+HD int lowest_bit(uint32_t m) {
+#ifdef __CUDA_ARCH__
+  return __ffs(m) - 1;
+#else
+  return __builtin_ctz(m);
+#endif
+}
+
+// add one pair's update to cell i's sum (bit i of `has` marks a first
+// update; 0 + x as the plain engine's masked sum gives)
+HD void add_update(V2* p, V2* v, uint32_t& has, int i, V2 np_, V2 nv) {
+  if ((has >> i) & 1u) {
+    p[i] = {p[i].x + np_.x, p[i].y + np_.y};
+    v[i] = {v[i].x + nv.x, v[i].y + nv.y};
+  } else {
+    p[i] = {0.0f + np_.x, 0.0f + np_.y};
+    v[i] = {0.0f + nv.x, 0.0f + nv.y};
+    has |= 1u << i;
+  }
+}
+
 // check_player_self_collisions under SPEC M6 (physics.py::self_collisions):
-// 5 Jacobi passes over the mutual lowest-rank matching, then one static pass
+// 5 Jacobi passes over the mutual lowest-rank matching, then one static
+// pass. A cell chooses every touching cell of the lowest rank it touches
+// (several only when ids are equal); a pair moves when the choice is
+// mutual and its ranks differ, and a cell in several such pairs takes the
+// sum of its updates (as "a", the lower rank, before as "b"), as the plain
+// engine's masked sums give. Cells and pairs are walked as bit sets.
 HD void self_collisions(const EnvParams& p, Env& e, const int* rank) {
   Cells& c = e.c;
   const int Cc = p.Cc;
   float rad[MAX_CELLS];
-  for (int i = 0; i < Cc; i++) rad[i] = radius(float(c.m[i]));
+  uint32_t live = 0;
+  for (int i = 0; i < Cc; i++) {
+    rad[i] = radius(float(c.m[i]));
+    live |= c.al[i] ? 1u << i : 0u;
+  }
   for (int pass = 0; pass < 6; pass++) {
-    int partner[MAX_CELLS];
-    for (int i = 0; i < Cc; i++) {
-      partner[i] = -1;
-      if (!c.al[i]) continue;
+    uint32_t chose[MAX_CELLS];
+    for (uint32_t mi = live; mi; mi &= mi - 1) {
+      const int i = lowest_bit(mi);
       int best = BIG_I;
-      for (int j = 0; j < Cc; j++) {
-        if (j == i || !c.al[j]) continue;
+      chose[i] = 0;
+      for (uint32_t mj = live & ~(1u << i); mj; mj &= mj - 1) {
+        const int j = lowest_bit(mj);
         const float rs = rad[i] + rad[j];
-        if (rs * rs >= norm2(c.x[j] - c.x[i], c.y[j] - c.y[i])
-            && rank[j] < best) {
+        if (!(rs * rs >= norm2(c.x[j] - c.x[i], c.y[j] - c.y[i]))) continue;
+        if (rank[j] < best) {
           best = rank[j];
-          partner[i] = j;
+          chose[i] = 0;
         }
+        if (rank[j] == best) chose[i] |= 1u << j;
       }
     }
-    V2 np_[MAX_CELLS], nv[MAX_CELLS];
-    for (int i = 0; i < Cc; i++) {
-      np_[i] = {c.x[i], c.y[i]};
-      nv[i] = {c.vx[i], c.vy[i]};
-    }
-    for (int i = 0; i < Cc; i++) {
-      const int j = partner[i];
-      if (j < 0 || partner[j] != i || rank[i] > rank[j]) continue;
-      V2 pa = {c.x[i], c.y[i]}, va = {c.vx[i], c.vy[i]};
-      V2 pb = {c.x[j], c.y[j]}, vb = {c.vx[j], c.vy[j]};
-      if (pass < 5) {
-        prevent_overlap(p, pa, va, {c.sx[i], c.sy[i]}, c.m[i], pb, vb,
-                        {c.sx[j], c.sy[j]}, c.m[j], e.tx, e.ty);
-      } else {
-        avoid_static(p, pa, va, pb, vb, rad[i], rad[j]);
+    V2 ap[MAX_CELLS], av[MAX_CELLS], bp[MAX_CELLS], bv[MAX_CELLS];
+    uint32_t has_a = 0, has_b = 0;
+    for (uint32_t mi = live; mi; mi &= mi - 1) {
+      const int i = lowest_bit(mi);
+      for (uint32_t mj = chose[i]; mj; mj &= mj - 1) {
+        const int j = lowest_bit(mj);
+        if (!((chose[j] >> i) & 1u) || rank[i] >= rank[j]) continue;
+        V2 pa = {c.x[i], c.y[i]}, va = {c.vx[i], c.vy[i]};
+        V2 pb = {c.x[j], c.y[j]}, vb = {c.vx[j], c.vy[j]};
+        if (pass < 5) {
+          prevent_overlap(p, pa, va, {c.sx[i], c.sy[i]}, c.m[i], pb, vb,
+                          {c.sx[j], c.sy[j]}, c.m[j], e.tx, e.ty);
+        } else {
+          avoid_static(p, pa, va, pb, vb, rad[i], rad[j]);
+        }
+        add_update(ap, av, has_a, i, pa, va);
+        add_update(bp, bv, has_b, j, pb, vb);
       }
-      np_[i] = pa; nv[i] = va; np_[j] = pb; nv[j] = vb;
     }
-    for (int i = 0; i < Cc; i++) {
-      c.x[i] = np_[i].x; c.y[i] = np_[i].y;
-      c.vx[i] = nv[i].x; c.vy[i] = nv[i].y;
+    for (uint32_t m = has_a | has_b; m; m &= m - 1) {
+      const int i = lowest_bit(m);
+      const bool a = (has_a >> i) & 1u;
+      c.x[i] = a ? ap[i].x : bp[i].x;
+      c.y[i] = a ? ap[i].y : bp[i].y;
+      c.vx[i] = a ? av[i].x : bv[i].x;
+      c.vy[i] = a ? av[i].y : bv[i].y;
     }
   }
 }
@@ -340,10 +378,13 @@ HD void engine_tick(const EnvParams& p, const Planes& s, int n, int N,
   int rank[MAX_CELLS];
   cell_ranks(c, Cc, rank);
   self_collisions(p, e, rank);
-  int order[MAX_CELLS];   // live cells by rank
+  // live cells by rank, cells of one rank (equal ids) in slot order
+  int order[MAX_CELLS];
   int n_start = 0;
   for (int i = 0; i < Cc; i++) n_start += c.al[i] ? 1 : 0;
-  for (int i = 0; i < Cc; i++) if (c.al[i]) order[rank[i]] = i;
+  for (int r = 0, k = 0; r < n_start; r++)
+    for (int i = 0; i < Cc; i++)
+      if (c.al[i] && rank[i] == r) order[k++] = i;
 
   // --- 4. virus events (SPEC M2) ------------------------------------------
   NewCell cand_pop[PLAYER_CELL_LIMIT];
@@ -403,7 +444,8 @@ HD void engine_tick(const EnvParams& p, const Planes& s, int n, int N,
     }
   }
 
-  // --- 5. pellets (SPEC M1): lowest-rank eater wins ------------------------
+  // --- 5. pellets (SPEC M1): the lowest-rank eater wins; cells that share
+  // that rank all eat it (eating.py::_resolve) ------------------------------
   {
     float r2[MAX_CELLS];
     int eaten[MAX_CELLS];
@@ -416,12 +458,13 @@ HD void engine_tick(const EnvParams& p, const Planes& s, int n, int N,
       const int key = AT(s.pkey, j);
       if (key < 0) continue;
       const float px = pellet_x(p, key), py = pellet_y(p, key);
-      for (int r = 0; r < n_start; r++) {
+      for (int r = 0, won = -1; r < n_start; r++) {
         const int i = order[r];
+        if (won >= 0 && rank[i] != won) break;
         if (r2[i] >= norm2(c.x[i] - px, c.y[i] - py)) {
           eaten[i] += 1;
           AT(s.pkey, j) = -1;
-          break;
+          won = rank[i];
         }
       }
     }
@@ -462,12 +505,13 @@ HD void engine_tick(const EnvParams& p, const Planes& s, int n, int N,
     for (int f = 0; f < Nf; f++) {
       if (!AT(s.falive, f)) continue;
       const float fx = AT(s.fx, f), fy = AT(s.fy, f);
-      for (int r = 0; r < n_start; r++) {
+      for (int r = 0, won = -1; r < n_start; r++) {
         const int i = order[r];
+        if (won >= 0 && rank[i] != won) break;
         if (c.m[i] > 11 && rm2[i] >= norm2(c.x[i] - fx, c.y[i] - fy)) {
           eaten[i] += 1;
           AT(s.falive, f) = 0;
-          break;
+          won = rank[i];
         }
       }
     }
@@ -657,12 +701,13 @@ HD void engine_tick(const EnvParams& p, const Planes& s, int n, int N,
     const int vdef = p.num_viruses - valive_n;
     for (int v = 0, dead = 0; v < Nv && dead < vdef; v++) {
       if (AT(s.valive, v)) continue;
-      float x = 0.0f + (p.virus_hi_x - 0.0f)
-                * uniformf(e.seed, STREAM_VIRUS, tk, v, 0);
-      float y = 0.0f + (p.virus_hi_y - 0.0f)
-                * uniformf(e.seed, STREAM_VIRUS, tk, v, 1);
-      AT(s.vx, v) = x + p.virus_rad;
-      AT(s.vy, v) = y + p.virus_rad;
+      // spawn.py::random_location: fma(f32(W - 2r), u, f32(r))
+      AT(s.vx, v) = FMAF(p.virus_hi_x,
+                         uniformf(e.seed, STREAM_VIRUS, tk, v, 0),
+                         p.virus_rad);
+      AT(s.vy, v) = FMAF(p.virus_hi_y,
+                         uniformf(e.seed, STREAM_VIRUS, tk, v, 1),
+                         p.virus_rad);
       AT(s.vvx, v) = 0.0f; AT(s.vvy, v) = 0.0f;
       AT(s.vmass, v) = VIRUS_INITIAL_MASS;
       AT(s.vhits, v) = 0;

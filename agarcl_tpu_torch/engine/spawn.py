@@ -15,6 +15,7 @@ import torch
 from agarcl_tpu_torch import constants as C
 from agarcl_tpu_torch import prng
 from agarcl_tpu_torch.config import EnvConfig
+from agarcl_tpu_torch.engine.geometry import fma32
 from agarcl_tpu_torch.state import encode_pellet_key
 
 INIT_TICK = -1  # "tick" counter value of the initial placement draws
@@ -26,12 +27,16 @@ def _f32(x) -> float:
 
 def random_location(arena_w, arena_h, radius, seed, stream, tick, slot):
     """Engine::random_location: uniform in [r, W-r) x [r, H-r), drawn as
-    uniform_range(0, W - 2r) + r in f32 (W - 2r formed in f64 first)."""
+    fma(f32(W - 2r), u, f32(r)) with u the f32 uniform (W - 2r formed in
+    f64 first). XLA-CPU fuses uniform_range(0, W - 2r) + r into that one
+    fma in every context the JAX package draws it (reset, respawn, regen),
+    read off its output; the product rounded first differs on about a
+    quarter of the draws."""
     r = _f32(radius)
-    x = prng.uniform_range(0.0, _f32(arena_w - 2.0 * radius), seed, stream,
-                           tick, slot, 0) + r
-    y = prng.uniform_range(0.0, _f32(arena_h - 2.0 * radius), seed, stream,
-                           tick, slot, 1) + r
+    x = fma32(_f32(arena_w - 2.0 * radius),
+              prng.uniform(seed, stream, tick, slot, 0), r)
+    y = fma32(_f32(arena_h - 2.0 * radius),
+              prng.uniform(seed, stream, tick, slot, 1), r)
     return torch.stack([x, y], dim=-1)
 
 

@@ -22,7 +22,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent.parent / ".kernel_build"
-SOURCES = ("ram_frame.cu", "tick.cu", "screen.cu")
+SOURCES = ("ram_frame.cu", "tick.cu", "screen.cu", "grid.cu")
 HEADERS = ("common.cuh", "ram_frame.cuh")
 # --fmad=false: no contraction of a*b+c except the explicit __fmaf_rn sites
 # (engine/geometry.py FMA contract); IEEE division and sqrt are nvcc's
@@ -79,6 +79,8 @@ def _declare(lib) -> None:
     lib.agarcl_multi_step.restype = i32
     lib.agarcl_screen.argtypes = [vp, vp, vp, vp, i32, vp]
     lib.agarcl_screen.restype = i32
+    lib.agarcl_grid.argtypes = [vp, vp, vp, vp, i32, vp]
+    lib.agarcl_grid.restype = i32
     lib.agarcl_error_string.argtypes = [i32]
     lib.agarcl_error_string.restype = ctypes.c_char_p
 

@@ -3,11 +3,12 @@
 - `multi_step_resident`: the kernel-layout state carrier and the rim that
   turns the per-step (mass, alive) rows of the multi-step tick into rewards
   and dones (BaseEnvironment.hpp:89-122 semantics, as
-  fused_env_multi_step_resident), with per-step screen frames for a
-  ScreenObsConfig;
+  fused_env_multi_step_resident), with per-step screen or grid frames for a
+  ScreenObsConfig or GridObsConfig;
 - `fused_env_step`: one step on a GameState (as fused_env_step): the tick
-  kernel with k=1, the screen kernel on the post-step planes, then
-  `_finish_step` (main respawn, mode rules, rewards, auto-reset).
+  kernel with k=1, the frame kernel (screen or grid) on the post-step
+  planes, then `_finish_step` (main respawn, mode rules, rewards,
+  auto-reset).
 """
 
 from __future__ import annotations
@@ -19,7 +20,9 @@ import torch
 from agarcl_tpu_torch import constants as C
 from agarcl_tpu_torch.config import EnvConfig
 from agarcl_tpu_torch.env import finish_step, reset_done
+from agarcl_tpu_torch.obs.grid import GridObsConfig
 from agarcl_tpu_torch.obs.screen import ScreenObsConfig
+from agarcl_tpu_torch.ops import fused_grid as FG
 from agarcl_tpu_torch.ops import fused_screen as FS
 from agarcl_tpu_torch.ops import fused_tick as FT
 from agarcl_tpu_torch.state import GameState, zero_state
@@ -63,23 +66,38 @@ def from_resident(cfg: EnvConfig, resident: ResidentState) -> GameState:
         dones=resident.dones.clone())
 
 
-def _screen_steps(cfg, raw, actions, k, ocfg, step, stack_obs):
-    """k x (one-step tick, then the screen frame of the post-step planes).
-    Returns (planes, obs (k, N, 1, 1, S, S, C) or a k-tuple of
-    (N, 1, 1, S, S, C), info (k, N, 2, P)); stacked frames are written
-    into their slice of one buffer."""
+def frame_kernel(ocfg):
+    """(wrapper, per-env frame shape, dtype) of a frame observation: the
+    screen kernel K3 for a ScreenObsConfig, the grid kernel K4 for a
+    GridObsConfig; None for RAM and no observation."""
+    if isinstance(ocfg, GridObsConfig):
+        G = ocfg.grid_size
+        return (FG.fused_grid_frame, (ocfg.channels_per_frame, G, G),
+                ocfg.torch_dtype)
+    if isinstance(ocfg, ScreenObsConfig):
+        S = ocfg.screen_len
+        return (FS.fused_screen_frame, (S, S, 4 if ocfg.agent_view else 3),
+                torch.uint8)
+    return None
+
+
+def _frame_steps(cfg, raw, actions, k, ocfg, step, stack_obs):
+    """k x (one-step tick, then the frame kernel on the post-step planes).
+    Returns (planes, obs (k, N, 1, 1, ...) or a k-tuple of (N, 1, 1, ...),
+    info (k, N, 2, P)); stacked frames are written into their slice of one
+    buffer."""
+    frame, shape, dtype = frame_kernel(ocfg)
     N = raw[0].shape[-1]
-    S, ch = ocfg.screen_len, 4 if ocfg.agent_view else 3
-    buf = (torch.empty((k, N, 1, 1, S, S, ch), dtype=torch.uint8,
+    buf = (torch.empty((k, N, 1, 1) + shape, dtype=dtype,
                        device=raw[0].device) if stack_obs else None)
     frames, info = [], []
     for t in range(k):
         raw, _, inf = step(cfg, raw, actions, 1, None)
         info.append(inf[0])
         if stack_obs:
-            FS.fused_screen_frame(cfg, ocfg, raw, out=buf[t, :, 0])
+            frame(cfg, ocfg, raw, out=buf[t, :, 0])
         else:
-            frames.append(FS.fused_screen_frame(cfg, ocfg, raw)[:, None])
+            frames.append(frame(cfg, ocfg, raw)[:, None])
     return raw, (buf if stack_obs else tuple(frames)), torch.stack(info)
 
 
@@ -89,18 +107,18 @@ def multi_step_resident(cfg: EnvConfig, resident: ResidentState, actions,
     """k env steps on resident state through `step`: the K1 wrapper
     fused_tick.multi_step_raw by default, or its plain version
     fused_tick.multi_step_raw_plain (the "torch" backend, any device).
-    With a ScreenObsConfig, each step is a one-step `step` call followed by
-    the screen wrapper fused_screen.fused_screen_frame (K3 on CUDA).
+    With a ScreenObsConfig or GridObsConfig, each step is a one-step `step`
+    call followed by the frame wrapper (`frame_kernel`: K3 or K4 on CUDA).
 
     Returns (resident, obs, rewards (k, N, A) f32, dones (k, N, A) bool);
-    obs is (k, N, 1, A, R) for RAM, (k, N, 1, A, S, S, C) uint8 (or a
-    k-tuple of (N, 1, A, S, S, C) with stack_obs=False) for screen, or
-    None."""
+    obs is (k, N, 1, A, R) for RAM, (k, N, 1, A, S, S, C) uint8 for screen,
+    (k, N, 1, A, C, G, G) for grid (screen and grid: a k-tuple of
+    (N, 1, A, ...) with stack_obs=False), or None."""
     A = cfg.num_agents
     ms = cfg.mode_spec
-    if isinstance(ocfg, ScreenObsConfig):
-        raw, obs, info = _screen_steps(cfg, resident.raw, actions, k, ocfg,
-                                       step, stack_obs)
+    if frame_kernel(ocfg) is not None:
+        raw, obs, info = _frame_steps(cfg, resident.raw, actions, k, ocfg,
+                                      step, stack_obs)
     else:
         raw, obs, info = step(cfg, resident.raw, actions, k, ocfg)
         obs = obs[:, :, None] if obs is not None else None
@@ -121,16 +139,15 @@ def multi_step_resident(cfg: EnvConfig, resident: ResidentState, actions,
     return new_res, obs, rewards, dones
 
 
-def fused_env_step(cfg: EnvConfig, states: GameState, actions,
-                   ocfg: ScreenObsConfig, num_frames: int = 1,
-                   auto_reset: bool = False,
+def fused_env_step(cfg: EnvConfig, states: GameState, actions, ocfg,
+                   num_frames: int = 1, auto_reset: bool = False,
                    respawn_main_during_obs: bool = False):
     """One env step of a batch through the kernel wrappers: apply actions
     plus ticks_per_step ticks (multi_step_raw with k=1, K1 on CUDA), the
-    screen frame of the post-step state (fused_screen_frame, K3 on CUDA),
-    then `_finish_step`.
-    Returns (states, obs (N, 1, 1, S, S, C) uint8, rewards (N, A),
-    dones (N, A))."""
+    frame of the post-step state (a ScreenObsConfig: fused_screen_frame, K3
+    on CUDA; a GridObsConfig: fused_grid_frame, K4 on CUDA), then
+    `_finish_step`.
+    Returns (states, obs (N, 1, 1, ...), rewards (N, A), dones (N, A))."""
     if num_frames != 1:
         raise NotImplementedError(
             "the tick kernel runs whole steps: frames of earlier ticks "
@@ -139,7 +156,7 @@ def fused_env_step(cfg: EnvConfig, states: GameState, actions,
     before = states.player_mass()[:, :A].to(torch.float32)
     planes, _, _ = FT.multi_step_raw(cfg, FT.to_kernel_arrays(states),
                                      actions, 1, None)
-    obs = FS.fused_screen_frame(cfg, ocfg, planes)[:, None]
+    obs = frame_kernel(ocfg)[0](cfg, ocfg, planes)[:, None]
     template = states.replace(main_respawned=torch.zeros_like(
         states.main_respawned))
     states = FT.from_kernel_arrays(template, planes)

@@ -1,26 +1,29 @@
 """Batched lockstep environments (counterpart of vec.py).
 
-VecEnv(cfg, num_envs, obs_type="ram"|"screen"|"none", backend="cuda",
+VecEnv(cfg, num_envs, obs_type="ram"|"screen"|"grid"|"none", backend="cuda",
 device="cuda", obs_config=None, auto_reset=False,
 respawn_main_during_obs=False). It runs on the card unless the caller asks
 for the CPU (backend="torch", device="cpu"); without a CUDA device a card
 run raises.
 
 - backend="cuda" runs the hand-written kernels: K1, the multi-step tick
-  (ops/fused_tick.py), K2, the RAM frame (ops/fused_obs.py), and K3, the
-  screen frame (ops/fused_screen.py). RAM and no observations run as one
-  K1 call per multi_step on resident (feature, N) planes. Screen
-  observations run k x (K1 with k=1, then K3) on planes converted once per
-  call; with auto_reset, respawn_main_during_obs or mode 0's respawn they
-  go step by step through a GameState (ops/fused_step.py::fused_env_step).
+  (ops/fused_tick.py), K2, the RAM frame (ops/fused_obs.py), K3, the
+  screen frame (ops/fused_screen.py), and K4, the grid frame
+  (ops/fused_grid.py). RAM and no observations run as one K1 call per
+  multi_step on resident (feature, N) planes. Screen and grid observations
+  run k x (K1 with k=1, then K3 or K4) on planes converted once per call;
+  with auto_reset, respawn_main_during_obs or mode 0's respawn they go step
+  by step through a GameState (ops/fused_step.py::fused_env_step).
   Nothing falls back to the CPU or to the plain version.
 - backend="torch" runs the plain engine (engine_tick) and the plain frames
-  (obs/ram.py::ram_frame; ops/fused_screen.py::frame_plain) on any device.
+  (obs/ram.py::ram_frame; ops/fused_screen.py::frame_plain;
+  ops/fused_grid.py::frame_plain) on any device.
 
-Shapes follow the JAX package: reset obs (N, A, R) or (N, A, S, S, C);
-multi_step obs (k, N, 1, A, ...) (screen: uint8, or a k-tuple of
-(N, 1, A, S, S, C) with stack_obs=False), rewards (k, N, A) f32, dones
-(k, N, A) bool; step returns them without the k axis.
+Shapes follow the JAX package: reset obs (N, A, R), (N, A, S, S, C) or
+(N, A, C, G, G); multi_step obs (k, N, 1, A, ...) (screen: uint8; grid: the
+GridObsConfig's dtype; both also as a k-tuple of (N, 1, A, ...) with
+stack_obs=False), rewards (k, N, A) f32, dones (k, N, A) bool; step
+returns them without the k axis.
 """
 
 from __future__ import annotations
@@ -30,9 +33,11 @@ import torch
 from agarcl_tpu_torch.config import EnvConfig
 from agarcl_tpu_torch.engine.tick import check_supported
 from agarcl_tpu_torch.env import env_reset, env_step, reset_done, reset_seeds
+from agarcl_tpu_torch.obs.grid import GridObsConfig
 from agarcl_tpu_torch.obs.ram import RamObsConfig, ram_frame
 from agarcl_tpu_torch.obs.screen import ScreenObsConfig, check_circle_mode
 from agarcl_tpu_torch.ops import fused_obs, fused_step
+from agarcl_tpu_torch.ops import fused_grid as FG
 from agarcl_tpu_torch.ops import fused_screen as FS
 from agarcl_tpu_torch.ops import fused_tick as FT
 from agarcl_tpu_torch.state import GameState
@@ -43,9 +48,9 @@ class VecEnv:
                  backend: str = "cuda", device=None, obs_config=None,
                  auto_reset: bool = False,
                  respawn_main_during_obs: bool = False):
-        if obs_type not in ("ram", "screen", "none"):
+        if obs_type not in ("ram", "screen", "grid", "none"):
             raise ValueError(f"obs_type {obs_type!r} is not ported yet "
-                             "(ram, screen and none are)")
+                             "(ram, screen, grid and none are)")
         if backend not in ("torch", "cuda"):
             raise ValueError(f"unknown backend {backend!r}")
         check_supported(cfg)
@@ -61,19 +66,23 @@ class VecEnv:
         elif obs_type == "screen":
             self.ocfg = obs_config or ScreenObsConfig()
             check_circle_mode(self.ocfg)
+        elif obs_type == "grid":
+            self.ocfg = obs_config or GridObsConfig()
+            self.ocfg.torch_dtype                 # validates out_dtype
         self._per_step = (auto_reset or respawn_main_during_obs
                           or cfg.mode_spec.respawn_all)
         if backend == "cuda":
             if device.type != "cuda":
                 raise ValueError("backend='cuda' runs on a CUDA device")
-            fits = (FT.supports(cfg) if obs_type == "screen"
+            frames = obs_type in ("screen", "grid")
+            fits = (FT.supports(cfg) if frames
                     else fused_step.supports_multi(cfg, obs_type)
                     and not self._per_step)
             if not fits:
                 raise NotImplementedError(
                     "the cuda backend runs the tick kernel, which this "
                     "configuration does not fit")
-            if obs_type == "screen" and self.ocfg.num_frames != 1:
+            if frames and self.ocfg.num_frames != 1:
                 raise NotImplementedError(
                     "the tick kernel runs whole steps: num_frames > 1 is "
                     "not ported to the cuda backend")
@@ -95,6 +104,9 @@ class VecEnv:
             return ram_frame(self.cfg, self.ocfg, states)
         if self.obs_type == "screen":
             frame = FS.fused_screen_frame if cuda else FS.frame_plain
+            return frame(self.cfg, self.ocfg, FT.to_kernel_arrays(states))
+        if self.obs_type == "grid":
+            frame = FG.fused_grid_frame if cuda else FG.frame_plain
             return frame(self.cfg, self.ocfg, FT.to_kernel_arrays(states))
         return None
 
@@ -120,7 +132,7 @@ class VecEnv:
         """k env steps with the same actions; `states` is a GameState or,
         for ram and none observations, a ResidentState (from make_resident
         or a previous resident call), and the result has the same kind.
-        stack_obs=False returns screen or ram frames as a k-tuple."""
+        stack_obs=False returns the frames as a k-tuple."""
         actions = self._actions(actions)
         if isinstance(states, fused_step.ResidentState):
             step = (FT.multi_step_raw if self.backend == "cuda"
@@ -154,7 +166,8 @@ class VecEnv:
         return states, obs, torch.stack(rs), torch.stack(ds)
 
     def _plain_step(self, states, actions):
-        nf = self.ocfg.num_frames if self.obs_type == "screen" else 1
+        nf = (self.ocfg.num_frames if self.obs_type in ("screen", "grid")
+              else 1)
         obs_fn = self._frame if self.ocfg is not None else None
         out = env_step(self.cfg, states, actions,
                        self.respawn_main_during_obs, obs_fn=obs_fn,

@@ -2,12 +2,14 @@
 
     python3 chip_smoke.py
 
-Drives the port's two main paths (agarcl_tpu_torch) at full size, in the
-bench.py game (mode 4, arena 350, 500 pellets, 10 viruses, 4 ticks per
+Drives the port's three main paths (agarcl_tpu_torch) at full size, in
+the bench.py game (mode 4, arena 350, 500 pellets, 10 viruses, 4 ticks per
 step, delta-mass reward) at 8192 envs through VecEnv on the card: the RAM
-path (RAM frame every step; reset, make_resident, multi_step(k=40)) and the
+path (RAM frame every step; reset, make_resident, multi_step(k=40)), the
 screen path (the task suite's 128 x 128 agent-view screen every step;
-reset, multi_step(k=10)). Phases, one line each:
+reset, multi_step(k=10)) and the grid path (bench.py --obs grid: a 64 x 64
+int16 grid of 8 channels every step; reset, multi_step(k=10)). Phases, one
+line each:
 
   1. toolchain: GPU name and power limit, torch and CUDA versions, nvcc,
      kernel build time;
@@ -34,7 +36,20 @@ reset, multi_step(k=10)). Phases, one line each:
      then the per-step composition (auto_reset, respawn_main_during_obs,
      64 dead main players) for 2 steps against the torch backend;
   9. times: screen-path env-steps/s for both backends, K3 alone per frame
-     (CUDA events) against its bound, K1 at k=1 per step.
+     (CUDA events) against its bound, K1 at k=1 per step;
+ 10. K4 (grid kernel) against its plain version on the card, 0 differing
+     values: 8192 envs after 3 steps at G=64 int16, G=128 int32 and G=32
+     int8, a heavy-cell state, a two-player state (others' min and max),
+     two viruses in one bin (max below the total), an own cell above 32767
+     (int16 saturation) and one case with channels switched off;
+ 11. the grid main path: reset + multi_step(k=10) launches K1 10 times and
+     K4 11 times and no plain version, (10, 8192, 1, 1, 8, 64, 64) int16
+     frames; the plain "torch" backend from the same state gives the same
+     rewards, dones and frames; then the per-step composition as in 8;
+ 12. times: grid-path env-steps/s for both backends, K4 alone per frame
+     (CUDA events) against its bound at G=64 int16 and G=128 int32, the
+     plain section build, the device's busy share of one profiled call, K1
+     at k=1 per step against its plain version.
 
 Then a JSON line describing each kernel, the GPU line and, last, the
 device JSON line.
@@ -62,6 +77,7 @@ MAX_DIVERGED_SHARE = 0.005               # of envs after 8 and 40 steps
 PROBE_ENVS = (4096, 8192, 16384, 32768)
 S_SCREEN = 128                           # bench/tasks_configs/mode_*.json
 K_SCREEN = 10                            # bench.py:76-77, non-RAM obs
+G_GRID = 64                              # bench.py:108-111, --obs grid
 HBM_BYTES_PER_S = 3.35e12                # H100 SXM data sheet
 F32_OPS_PER_S = 67e12                    # f32 outside the tensor cores
 
@@ -232,6 +248,43 @@ def _screen_work(cfg, ocfg, planes):
     return nbytes, ops
 
 
+def _grid_work(cfg, ocfg, n: int):
+    """Bytes and f32 operations of one K4 frame: the cell, pellet and virus
+    planes it reads once and the frame written once; 10 operations per
+    entity bin and 4 per output pixel (a lower bound)."""
+    G, C = ocfg.grid_size, ocfg.channels_per_frame
+    elem = torch.empty((), dtype=ocfg.torch_dtype).element_size()
+    read = (cfg.num_players * cfg.max_cells * 13 + 4 * cfg.pellet_capacity
+            + 13 * cfg.virus_capacity)
+    ents = cfg.pellet_capacity + cfg.virus_capacity + (
+        cfg.num_players * cfg.max_cells)
+    return n * (read + C * G * G * elem), n * (10 * ents + 4 * G * G)
+
+
+def _grid_cases(cfg, duel, played, heavy):
+    """(label, cfg, state) of the phase-10 states beyond the played one:
+    the heavy state; two players whose second player stacks two cells of
+    different mass in one bin; two viruses in one bin (masses 100 and
+    150); an own cell of mass 40000."""
+    dev = played.device
+    two = _two_player_state(duel, heavy)
+    cp, cm, ca = two.cell_pos.clone(), two.cell_mass.clone(), \
+        two.cell_alive.clone()
+    cp[:, 1, 1] = cp[:, 1, 0] + torch.tensor([0.01, 0.01], device=dev)
+    cm[:, 1, 1], ca[:, 1, 1] = 40, True
+    two = two.replace(cell_pos=cp, cell_mass=cm, cell_alive=ca)
+    vp, vm = played.virus_pos.clone(), played.virus_mass.clone()
+    vp[:, 1] = vp[:, 0] + torch.tensor([0.01, 0.01], device=dev)
+    vm[:, 1] = 150
+    vir = played.replace(virus_pos=vp, virus_mass=vm)
+    cm = played.cell_mass.clone()
+    cm[:, 0, 0] = 40000
+    big = played.replace(cell_mass=cm)
+    return [("heavy", cfg, heavy), ("two players", duel, two),
+            ("two viruses in a bin", cfg, vir),
+            ("own mass 40000", cfg, big)]
+
+
 def _heavy_state(cfg, n: int, dev):
     """Cells of mass 400-2500 beside viruses, then 4 plain steps of splits
     and pops."""
@@ -295,7 +348,7 @@ def _ptxas_summary(log: str) -> str:
         if "Compiling entry function" in line:
             name = line.split("'")[1]
             for short in ("multi_step_kernel", "ram_frame_kernel",
-                          "screen_kernel"):
+                          "screen_kernel", "grid_kernel"):
                 if short in name:
                     name = short
         elif "Used" in line and name:
@@ -330,9 +383,11 @@ def main() -> int:
               "false); nothing was run", file=sys.stderr)
         return 2
     from agarcl_tpu_torch import EnvConfig
+    from agarcl_tpu_torch.obs.grid import GridObsConfig
     from agarcl_tpu_torch.obs.ram import RamObsConfig, ram_frame
     from agarcl_tpu_torch.obs.screen import ScreenObsConfig
     from agarcl_tpu_torch.ops import _build, fused_obs, fused_step
+    from agarcl_tpu_torch.ops import fused_grid as FG
     from agarcl_tpu_torch.ops import fused_screen as FS
     from agarcl_tpu_torch.ops import fused_tick as FT
     from agarcl_tpu_torch.vec import VecEnv
@@ -638,6 +693,172 @@ def main() -> int:
     print(f"[9 screen profile] one multi_step(k={K_SCREEN}) under "
           f"torch.profiler: device busy {busy}", flush=True)
 
+    # --- 10. K4 against its plain version ------------------------------------
+    gcfg = GridObsConfig(grid_size=G_GRID, out_dtype="int16")
+    g_cases = [("played", cfg, s2, gcfg),
+               ("played", cfg, s2, GridObsConfig(grid_size=128,
+                                                 out_dtype="int32")),
+               ("played", cfg, s2, GridObsConfig(grid_size=32,
+                                                 out_dtype="int8")),
+               ("played", cfg, s2, GridObsConfig(
+                   grid_size=G_GRID, out_dtype="int16", observe_pellets=False,
+                   observe_others=False))]
+    g_cases += [(lb, c, st, gcfg) for lb, c, st in _grid_cases(
+        cfg, DUEL, s2, k3_states[1][2])]
+    k4_err = 0
+    for label, c, st, oc in g_cases:
+        planes = FT.to_kernel_arrays(st)
+        got = FG.fused_grid_frame(c, oc, planes)
+        ref = FG.frame_plain(c, oc, planes)
+        bad = int((got != ref).sum())
+        k4_err = max(k4_err, (got.int() - ref.int()).abs().max().item())
+        _check(got.dtype == ref.dtype and bad == 0,
+               f"K4 vs plain, {label}, G={oc.grid_size} {oc.out_dtype}: "
+               f"{bad} values differ")
+        ch = ref[:, 0].int()
+        note = f"max per channel {ch.amax(dim=(0, 2, 3)).tolist()}"
+        if label == "two players":
+            _check(bool((ch[:, 6] != ch[:, 7]).any()), "others' min < max")
+        if label == "two viruses in a bin":
+            _check(bool((ch[:, 3] != ch[:, 4]).any()), "virus max < total")
+        if label == "own mass 40000":
+            _check(int(ch[:, 5].max()) == 32767, "own mass saturates")
+        print(f"[10 K4 grid] {label}, {N} envs, G={oc.grid_size} "
+              f"{oc.out_dtype}, {oc.channels_per_frame} channels: 0 of "
+              f"{ref.numel()} values differ from the plain frame ({note})",
+              flush=True)
+    del got, ref
+
+    # --- 11. the grid main path ---------------------------------------------
+    genv = VecEnv(cfg, N, "grid", obs_config=gcfg)
+    gpenv = VecEnv(cfg, N, "grid", backend="torch", device=dev,
+                   obs_config=gcfg)
+    FT.launches = FT.plain_calls = 0
+    fused_obs.launches = fused_obs.plain_calls = 0
+    FS.launches = FS.plain_calls = 0
+    FG.launches = FG.plain_calls = 0
+    st0, gobs0 = genv.reset(0)
+    st, gobs, grew, gdone = genv.multi_step(st0, acts, K_SCREEN)
+    torch.cuda.synchronize(dev)
+    g_k1, g_k4 = FT.launches, FG.launches
+    g_plain = (FT.plain_calls + fused_obs.plain_calls + FS.plain_calls
+               + FG.plain_calls)
+    _check(g_k1 == K_SCREEN and g_k4 == K_SCREEN + 1 and g_plain == 0,
+           f"grid path launches K1 {K_SCREEN}x, K4 {K_SCREEN + 1}x, plain "
+           f"0x (K1 {g_k1}, K4 {g_k4}, plain {g_plain})")
+    _check(tuple(gobs0.shape) == (N, 1, 8, G_GRID, G_GRID)
+           and gobs0.dtype == torch.int16, "grid reset obs shape")
+    _check(tuple(gobs.shape) == (K_SCREEN, N, 1, 1, 8, G_GRID, G_GRID)
+           and gobs.dtype == torch.int16, "grid multi_step obs shape")
+    _check(bool(torch.isfinite(grew).all()), "finite grid rewards")
+    _check(bool((gobs[:, :, 0, 0, 0] == 0).any()) and bool(
+        (gobs[:, :, 0, 0, 2] > 0).any()), "grid frames see the arena and "
+           "pellets")
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    pst, pobs, prew, pdone = gpenv.multi_step(st0, acts, K_SCREEN)
+    torch.cuda.synchronize(dev)
+    prew.sum().item()
+    t_gplain = time.perf_counter() - t0
+    same = ~_int_mismatch_envs(st, pst)
+    g_div = int((~same).sum())
+    _check(g_div <= max_bad, f"grid path: at most {max_bad} envs diverge "
+           f"({g_div})")
+    g_rew_err = (grew[:, same] - prew[:, same]).abs().max().item()
+    _check(g_rew_err <= TOL_REWARD and bool(torch.equal(gdone[:, same],
+                                                        pdone[:, same])),
+           f"grid rewards within 1e-5 ({g_rew_err}), dones equal")
+    g_obs_bad = int((gobs[:, same] != pobs[:, same]).sum())
+    _check(g_obs_bad == 0, f"grid frames equal ({g_obs_bad} values)")
+    print(f"[11 grid path] reset + multi_step(k={K_SCREEN}) at {N} envs, "
+          f"G={G_GRID} int16: K1 launches {g_k1}, K4 launches {g_k4}, plain "
+          f"calls {g_plain}; obs {tuple(gobs.shape)} int16; against the "
+          f"torch backend from the same state: {g_div} envs diverge, in the "
+          f"rest max reward err {g_rew_err:.3g}, dones equal, 0 values "
+          f"differ; mean reward per step {grew.mean().item():.4f}",
+          flush=True)
+    del gobs, pobs, st, pst, grew, prew, gdone, pdone
+    flags = dict(obs_config=gcfg, auto_reset=True,
+                 respawn_main_during_obs=True)
+    fenv = VecEnv(cfg, N, "grid", **flags)
+    fpenv = VecEnv(cfg, N, "grid", backend="torch", device=dev, **flags)
+    ca = st0.cell_alive.clone()
+    ca[:64] = False
+    st0 = st0.replace(cell_alive=ca)
+    k1_0, k4_0 = FT.launches, FG.launches
+    fst, fobs, frew, fdone = fenv.multi_step(st0, acts, 2)
+    _check((FT.launches - k1_0, FG.launches - k4_0) == (2, 2),
+           "per-step grid path launches K1 and K4 once a step")
+    pst, pobs, prew, pdone = fpenv.multi_step(st0, acts, 2)
+    same = ~_int_mismatch_envs(fst, pst)
+    fg_div = int((~same).sum())
+    _check(fg_div <= max_bad, f"per-step grid path: at most {max_bad} envs "
+           f"diverge ({fg_div})")
+    fg_rew_err = (frew[:, same] - prew[:, same]).abs().max().item()
+    _check(fg_rew_err <= TOL_REWARD and bool(torch.equal(fdone[:, same],
+                                                         pdone[:, same])),
+           f"per-step grid rewards within 1e-5 ({fg_rew_err}), dones equal")
+    fg_obs_bad = int((fobs[:, same] != pobs[:, same]).sum())
+    _check(fg_obs_bad == 0, f"per-step grid frames equal ({fg_obs_bad})")
+    _check(bool((frew[0, :64] >= 25).all()),
+           "dead main players respawned in the first step (reward >= 25)")
+    print(f"[11 per-step grid path] auto_reset + respawn_main_during_obs, 64 "
+          f"dead main players, multi_step(k=2) at {N} envs: K1 and K4 once a "
+          f"step; against the torch backend {fg_div} envs diverge, in the "
+          f"rest max reward err {fg_rew_err:.3g}, dones equal, 0 values "
+          f"differ", flush=True)
+    del fobs, pobs, fst, pst, st0
+
+    # --- 12. grid-path times ----------------------------------------------
+    s, _ = genv.reset(0)
+    s, o, rw, _ = genv.multi_step(s, acts, K_SCREEN)             # warm
+    rw.sum().item()
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        for _ in range(4):
+            del o
+            s, o, rw, _ = genv.multi_step(s, acts, K_SCREEN)
+        torch.cuda.synchronize(dev)
+        rw.sum().item()
+        times.append((time.perf_counter() - t0) / 4)
+    del o
+    t_grid = statistics.median(times)
+    big_g = GridObsConfig(grid_size=128, out_dtype="int32")
+    k4_ms = _event_ms(lambda: FG.fused_grid_frame(cfg, gcfg, planes2), 10)
+    k4_big_ms = _event_ms(lambda: FG.fused_grid_frame(cfg, big_g, planes2),
+                          10)
+    k4_bytes, k4_ops = _grid_work(cfg, gcfg, N)
+    k4_bound = _bound_ms(k4_bytes, k4_ops)
+    k4_big_bound = _bound_ms(*_grid_work(cfg, big_g, N))
+    k4_plain_ms = 1e3 * _timed(lambda: FG.frame_plain(cfg, gcfg, planes2),
+                               dev, 3)
+    sec_plain_ms = 1e3 * _timed(lambda: FG.grid_sections(cfg, planes2), dev,
+                                3)
+    genv.multi_step(s, acts, K_SCREEN)[2].sum().item()   # warm allocator
+    gprof = _device_profile(lambda: genv.multi_step(s, acts, K_SCREEN), dev)
+    k1_plain_step_ms = 1e3 * _timed(lambda: FT.multi_step_raw_plain(
+        cfg, [p.clone() for p in planes2], acts, 1, None), dev, 1)
+    print(f"[12 grid times] {N} envs, multi_step(k={K_SCREEN}), G={G_GRID} "
+          f"int16: kernel {N * K_SCREEN / t_grid:,.0f} env-steps/s "
+          f"({1e3 * t_grid:.2f} ms/call, median of 3 runs x 4 calls); plain "
+          f"torch backend {N * K_SCREEN / t_gplain:,.0f} env-steps/s "
+          f"({1e3 * t_gplain:.2f} ms/call, 1 call: phase 11's); K4 "
+          f"{k4_ms:.3f} ms/frame (CUDA events, mean of 10), bound "
+          f"{k4_bound[0]:.3f} ms by {k4_bound[1]} ({k4_bytes / 1e6:.1f} MB), "
+          f"{100 * k4_bound[0] / k4_ms:.1f}% of bound; K4 at G=128 int32 "
+          f"{k4_big_ms:.3f} ms/frame, bound {k4_big_bound[0]:.3f} ms by "
+          f"{k4_big_bound[1]}, {100 * k4_big_bound[0] / k4_big_ms:.1f}% of "
+          f"bound; plain frame {k4_plain_ms:.2f} ms, of it the plain section "
+          f"build {sec_plain_ms:.2f} ms; K1 k=1 plain version "
+          f"{k1_plain_step_ms:.2f} ms/step | {gpu}", flush=True)
+    gbusy = ("not measured (the profiler saw no device time)" if gprof is None
+             else f"{100 * gprof[0]:.1f}% of the call's wall time; largest: "
+             + ", ".join(f"{k} {t:.2f} ms" for k, t in gprof[1]))
+    print(f"[12 grid profile] one multi_step(k={K_SCREEN}) under "
+          f"torch.profiler: device busy {gbusy}", flush=True)
+
     k1_bytes, k1_ops = _tick_work(cfg, ocfg, N, k)
     k2_bytes, k2_ops = _ram_work(cfg, ocfg, N)
     k1_bound, k2_bound = _bound_ms(k1_bytes, k1_ops), _bound_ms(k2_bytes,
@@ -646,8 +867,9 @@ def main() -> int:
         {"name": "multi_step_tick", "route": "cuda",
          "source": "agarcl_tpu_torch/csrc/tick.cu",
          "replaces": "agarcl_tpu/ops/fused_tick.py:163",
-         "launches": k1_launches + s_k1,
-         "launches_by_path": {"ram": k1_launches, "screen": s_k1},
+         "launches": k1_launches + s_k1 + g_k1,
+         "launches_by_path": {"ram": k1_launches, "screen": s_k1,
+                              "grid": g_k1},
          "max_abs_err": k1_err,
          "ms": 1e3 * t_kernel, "plain_ms": 1e3 * t_plain,
          "bound_ms": k1_bound[0], "bound_by": k1_bound[1],
@@ -665,6 +887,13 @@ def main() -> int:
          "launches": s_k3, "max_abs_err": k3_err,
          "ms": k3_ms, "plain_ms": k3_plain_ms,
          "bound_ms": k3_bound[0], "bound_by": k3_bound[1],
+         "library_ms": None},
+        {"name": "grid_frame", "route": "cuda",
+         "source": "agarcl_tpu_torch/csrc/grid.cu",
+         "replaces": "agarcl_tpu/ops/fused_grid.py:107",
+         "launches": g_k4, "max_abs_err": k4_err,
+         "ms": k4_ms, "plain_ms": k4_plain_ms,
+         "bound_ms": k4_bound[0], "bound_by": k4_bound[1],
          "library_ms": None},
     ]}))
     print(gpu)

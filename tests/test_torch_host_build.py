@@ -1,0 +1,191 @@
+"""The CUDA sources of K1 (csrc/tick.cu) and K4 (csrc/grid.cu) compiled as
+host C++ (every kernel function is __host__ __device__, and without
+__CUDACC__ the sources build with g++), run env by env with one thread, and
+held against their plain versions on the CPU: exact equality of every state
+plane and every frame value. This checks the kernels' arithmetic and
+control flow without a card; the card's own check is `python3
+chip_smoke.py`. Skips without g++."""
+
+import ctypes
+import functools
+import shutil
+import subprocess
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from agarcl_tpu_torch import EnvConfig
+from agarcl_tpu_torch.env import env_reset, reset_seeds
+from agarcl_tpu_torch.obs.grid import GridObsConfig
+from agarcl_tpu_torch.ops import fused_grid as FG
+from agarcl_tpu_torch.ops import fused_tick as FT
+from agarcl_tpu_torch.ops import params as KP
+from agarcl_tpu_torch.state import zero_state
+from agarcl_tpu_torch.vec import VecEnv
+
+CSRC = Path(__file__).resolve().parent.parent / "agarcl_tpu_torch" / "csrc"
+HARNESS = r"""
+#include <vector>
+#include "tick.cu"
+#include "grid.cu"
+using namespace agarcl;
+extern "C" void host_multi_step(const EnvParams* p, void* const* planes,
+                                const float* ax, const float* ay,
+                                const int* aact, float* info, int N,
+                                int n_steps) {
+  const Planes s = planes_from(planes);
+  for (int n = 0; n < N; n++)
+    multi_step_env(*p, s, n, N, ax, ay, aact, nullptr, info, n_steps);
+}
+extern "C" void host_grid(const EnvParams* p, const GridParams* q,
+                          void* const* planes, uint8_t* out, int N) {
+  const Planes s = planes_from(planes);
+  const int G = q->G;
+  std::vector<int> hist(G * G);
+  std::vector<uint8_t> flags(2 * G);
+  std::vector<GridEnt> ents(GRID_MAX_ENTS);
+  float cam[3];
+  int nent;
+  for (int n = 0; n < N; n++)
+    grid_env(*p, *q, s, n, N, cam, &nent, flags.data(), hist.data(),
+             ents.data(), out + (long long)n * q->C * G * G * q->elem, 0, 1);
+}
+"""
+CFG = EnvConfig(num_agents=1, ticks_per_step=4, arena_size=200,
+                num_pellets=150, num_viruses=6, reward_type=True, mode=4)
+CFG3 = EnvConfig(num_agents=1, ticks_per_step=4, arena_size=200,
+                 num_pellets=150, num_viruses=6, reward_type=True, mode=3)
+DUEL = EnvConfig(num_agents=1, ticks_per_step=4, arena_size=200,
+                 num_pellets=150, num_viruses=6, mode=7)
+N = 8
+
+
+@pytest.fixture(scope="module")
+def host_lib(tmp_path_factory):
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("needs g++ to build the kernel sources as host C++")
+    d = tmp_path_factory.mktemp("host_kernels")
+    (d / "harness.cpp").write_text(HARNESS)
+    so = d / "libhost.so"
+    subprocess.run([gxx, "-std=c++17", "-O2", "-ffp-contract=off", "-shared",
+                    "-fPIC", f"-I{CSRC}", "-x", "c++", str(d / "harness.cpp"),
+                    "-o", str(so)], check=True, capture_output=True,
+                   timeout=300)
+    lib = ctypes.CDLL(str(so))
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.host_multi_step.argtypes = [vp, vp, vp, vp, vp, vp, i32, i32]
+    lib.host_grid.argtypes = [vp, vp, vp, vp, i32]
+    return lib
+
+
+def _host_steps(lib, cfg, state, acts, k):
+    """(planes, info) of k steps of the K1 source on CPU planes."""
+    planes = FT.to_kernel_arrays(state)
+    n = state.num_envs
+    ax, ay, aact = FT._actions_planes(cfg, acts, n)
+    info = torch.zeros((k, n, 2, cfg.num_players))
+    lib.host_multi_step(ctypes.byref(KP.env_params(cfg, None)),
+                        FT._ptr_array(planes), ax.data_ptr(), ay.data_ptr(),
+                        aact.data_ptr(), info.data_ptr(), n, k)
+    return planes, info
+
+
+def _assert_same_steps(lib, cfg, state, acts, k):
+    got, ginfo = _host_steps(lib, cfg, state, acts, k)
+    want, _, winfo = FT.multi_step_raw_plain(
+        cfg, FT.to_kernel_arrays(state), acts, k, None)
+    names = [name for name, _, _ in FT._plane_specs(cfg)]
+    for name, a, b in zip(names, got, want):
+        assert torch.equal(a, b), name
+    assert torch.equal(ginfo, winfo)
+    return got
+
+
+def _acts(n, seed):
+    rng = np.random.default_rng(seed)
+    a = np.concatenate([rng.uniform(-1, 1, (n, 1, 2)),
+                        rng.integers(0, 3, (n, 1, 1))], -1)
+    return torch.from_numpy(a.astype(np.float32))
+
+
+def _eventful(n):
+    """Heavy cells at the arena centre, a virus beside half of them."""
+    s = env_reset(CFG, reset_seeds(n, 3))
+    cm, cp, vp = s.cell_mass.clone(), s.cell_pos.clone(), s.virus_pos.clone()
+    cm[:, 0, 0] = 400
+    cp[:, 0, 0] = 100.0
+    vp[: n // 2, 0] = 103.0
+    return s.replace(cell_mass=cm, cell_pos=cp, virus_pos=vp)
+
+
+def test_tick_source_matches_plain_on_eventful_steps(host_lib):
+    planes = _assert_same_steps(host_lib, CFG, _eventful(N), _acts(N, 0), 4)
+    assert int(planes[FT.PLANE_INDEX["viruses_eaten"][0]].sum()) > 0
+
+
+def test_tick_source_matches_plain_with_equal_ids(host_lib):
+    """Two cells of one player share the id 9 (as a hand-made state can):
+    both stay in the rank order, both eat a pellet they both reach, a pair
+    of equal rank never moves, and a virus pop's new cells (lower ids)
+    match both of them at once, as the plain engine's rank rule gives."""
+    s = env_reset(CFG3, reset_seeds(N, 2))
+    cm, ca = s.cell_mass.clone(), s.cell_alive.clone()
+    cid, cp = s.cell_id.clone(), s.cell_pos.clone()
+    heavy = torch.arange(N) % 2 == 0
+    cm[:, 0, :2] = torch.where(heavy, 20000, 300)[:, None]
+    ca[:, 0, 1] = True
+    cid[:, 0, :2] = 9
+    cp[:, 0, 1, 0] = cp[:, 0, 0, 0] + torch.where(
+        torch.arange(N) % 4 < 2, 30.0, 4.0)
+    cp[:, 0, 1, 1] = cp[:, 0, 0, 1]
+    s = s.replace(cell_alive=ca, cell_mass=cm, cell_id=cid, cell_pos=cp)
+    acts = torch.tensor([[[0.6, -0.4, 0.0]]]).expand(N, 1, 3).contiguous()
+    planes = _assert_same_steps(host_lib, CFG3, s, acts, 1)
+    assert int(planes[FT.PLANE_INDEX["food_eaten"][0]].sum()) > 0
+
+
+@functools.lru_cache(maxsize=None)
+def _grid_states():
+    env = VecEnv(CFG, N, "none", backend="torch", device="cpu")
+    s0, _ = env.reset(0)
+    played, _, _, _ = env.multi_step(s0, _acts(N, 1), 2)
+    heavy, _, _, _ = env.multi_step(_eventful(N), _acts(N, 2), 2)
+    vp, vm = played.virus_pos.clone(), played.virus_mass.clone()
+    vp[:, 1] = vp[:, 0] + 0.01                   # two viruses in one bin
+    vm[:, 1] = 150
+    cm = played.cell_mass.clone()
+    cm[:, 0, 0] = 40000                          # saturates int16 and int8
+    z = zero_state(DUEL, N)
+    cp, cmm, ca = z.cell_pos.clone(), z.cell_mass.clone(), z.cell_alive.clone()
+    cp[:, 0], cp[:, 1] = heavy.cell_pos[:, 0], heavy.cell_pos[:, 0] + 9.0
+    cp[:, 1, 1] = cp[:, 1, 0] + 0.01             # others' min below max
+    cmm[:, 0], cmm[:, 1] = heavy.cell_mass[:, 0], heavy.cell_mass[:, 0] // 2
+    cmm[:, 1, 1] = 40
+    ca[:, 0], ca[:, 1] = heavy.cell_alive[:, 0], heavy.cell_alive[:, 0]
+    ca[:, 1, 1] = True
+    two = z.replace(cell_pos=cp, cell_mass=cmm, cell_alive=ca, **{
+        f: getattr(heavy, f) for f in ("pellet_key", "virus_pos",
+                                       "virus_mass", "virus_alive")})
+    return [(CFG, played.replace(virus_pos=vp, virus_mass=vm, cell_mass=cm)),
+            (CFG, heavy), (DUEL, two)]
+
+
+@pytest.mark.parametrize("grid", [
+    GridObsConfig(grid_size=64, out_dtype="int16"),
+    GridObsConfig(grid_size=32, out_dtype="int8"),
+    GridObsConfig(grid_size=24, out_dtype="int32", observe_cells=False)])
+def test_grid_source_matches_plain(host_lib, grid):
+    for cfg, s in _grid_states():
+        planes = FT.to_kernel_arrays(s)
+        want = FG.frame_plain(cfg, grid, planes)
+        got = torch.full_like(want, 77)
+        host_lib.host_grid(ctypes.byref(KP.env_params(cfg, None)),
+                           ctypes.byref(FG.grid_params(cfg, grid)),
+                           FT._ptr_array(planes), got.data_ptr(),
+                           s.num_envs)
+        assert torch.equal(got, want)
+    ch = want[:, 0].int()
+    assert bool((ch[:, -2] != ch[:, -1]).any())          # others drawn

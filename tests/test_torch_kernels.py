@@ -8,9 +8,11 @@ import torch
 
 from agarcl_tpu_torch import EnvConfig
 from agarcl_tpu_torch.env import env_reset, reset_seeds
+from agarcl_tpu_torch.obs.grid import GridObsConfig
 from agarcl_tpu_torch.obs.ram import RamObsConfig, ram_frame
 from agarcl_tpu_torch.obs.screen import ScreenObsConfig
 from agarcl_tpu_torch.ops import _build, fused_obs, fused_step
+from agarcl_tpu_torch.ops import fused_grid as FG
 from agarcl_tpu_torch.ops import fused_screen as FS
 from agarcl_tpu_torch.ops import fused_tick as FT
 from agarcl_tpu_torch.state import STATE_FIELDS, zero_state
@@ -146,6 +148,47 @@ def test_screen_wrapper_cpu_planes_run_the_plain_version(no_build):
     assert torch.equal(out, frame)
 
 
+def test_grid_wrapper_validates_before_building(no_build):
+    planes = _planes()
+    grid = GridObsConfig(grid_size=32)
+    bad = list(planes)
+    vm = FT.PLANE_INDEX["virus_mass"][0]
+    bad[vm] = bad[vm].float()                    # virus_mass as f32
+    with pytest.raises(TypeError, match="virus_mass"):
+        FG.fused_grid_frame(CFG, grid, bad)
+    two = EnvConfig(num_agents=2, arena_size=100, num_pellets=20,
+                    num_viruses=2, mode=4)
+    with pytest.raises(NotImplementedError):
+        FG.fused_grid_frame(two, grid, _planes(cfg=two))
+    with pytest.raises(ValueError, match="grid_size"):
+        FG.fused_grid_frame(CFG, GridObsConfig(grid_size=FG.MAX_GRID + 1),
+                            planes)
+    with pytest.raises(ValueError, match="out_dtype"):
+        FG.fused_grid_frame(CFG, GridObsConfig(grid_size=32,
+                                               out_dtype="uint8"), planes)
+    with pytest.raises(ValueError, match="out"):
+        FG.fused_grid_frame(CFG, grid, planes,
+                            out=torch.empty(4, 1, 8, 32, 32,
+                                            dtype=torch.int32))
+    with pytest.raises(NotImplementedError):
+        fused_step.fused_env_step(
+            CFG, env_reset(CFG, reset_seeds(4, 0)), torch.zeros(4, 1, 3),
+            GridObsConfig(num_frames=2, grid_size=32), num_frames=2)
+
+
+def test_grid_wrapper_cpu_planes_run_the_plain_version(no_build):
+    before = FG.launches, FG.plain_calls
+    grid = GridObsConfig(grid_size=24, out_dtype="int8",
+                         observe_others=False)
+    frame = FG.fused_grid_frame(CFG, grid, _planes())
+    assert (FG.launches, FG.plain_calls) == (before[0], before[1] + 1)
+    assert tuple(frame.shape) == (4, 1, 6, 24, 24)
+    assert frame.dtype == torch.int8
+    out = torch.zeros(4, 1, 6, 24, 24, dtype=torch.int8)
+    assert FG.fused_grid_frame(CFG, grid, _planes(), out=out) is out
+    assert torch.equal(out, frame)
+
+
 def _assert_same_steps(got, want):
     """(states, obs, rewards, dones) of two step runs: integer state equal,
     f32 state within 2e-3, frames equal, rewards within 1e-5, dones
@@ -161,31 +204,35 @@ def _assert_same_steps(got, want):
     assert torch.equal(gd, wd)
 
 
-def _step_compositions_match_plain(dev, n):
+def _step_compositions_match_plain(dev, n, obs_type="screen"):
     """The kernel path's step compositions on `dev` against the plain torch
-    backend: multi_step_resident's screen loop (k x (tick with k=1, then the
-    screen frame); stacked and tuple frames) in mode 4, and fused_env_step
-    with auto_reset and respawn_main_during_obs in mode 3, from a state with
-    dead main players (respawned, charged c_death) and players over the
-    mode's mass limit (done, then reset in place)."""
-    scr = ScreenObsConfig(32, agent_view=True)
+    backend: multi_step_resident's frame loop (k x (tick with k=1, then the
+    screen or grid frame); stacked and tuple frames) in mode 4, and
+    fused_env_step with auto_reset and respawn_main_during_obs in mode 3,
+    from a state with dead main players (respawned, charged c_death) and
+    players over the mode's mass limit (done, then reset in place)."""
+    if obs_type == "screen":
+        scr, mod, shape = ScreenObsConfig(32, agent_view=True), FS, (32, 32, 4)
+    else:
+        scr, mod = GridObsConfig(grid_size=32, out_dtype="int16"), FG
+        shape = (8, 32, 32)
     acts = torch.tensor([[[0.6, -0.4, 0.0]]], device=dev).expand(n, 1, 3)
     s0 = env_reset(CFG, reset_seeds(n, 1, dev))
-    plain = VecEnv(CFG, n, "screen", backend="torch", device=dev,
+    plain = VecEnv(CFG, n, obs_type, backend="torch", device=dev,
                    obs_config=scr)
     for stack in (True, False):
         want = plain.multi_step(s0, acts, 3, stack_obs=stack)
-        k1, k3 = FT.launches + FT.plain_calls, FS.launches + FS.plain_calls
+        k1, k3 = FT.launches + FT.plain_calls, mod.launches + mod.plain_calls
         res, obs, r, d = fused_step.multi_step_resident(
             CFG, fused_step.to_resident(CFG, s0), acts, 3, scr,
             stack_obs=stack)
         assert (FT.launches + FT.plain_calls - k1,
-                FS.launches + FS.plain_calls - k3) == (3, 3)
+                mod.launches + mod.plain_calls - k3) == (3, 3)
         if not stack:
             assert isinstance(obs, tuple) and len(obs) == 3
             obs, want = torch.stack(obs), (want[0], torch.stack(want[1]),
                                            *want[2:])
-        assert tuple(obs.shape) == (3, n, 1, 1, 32, 32, 4)
+        assert tuple(obs.shape) == (3, n, 1, 1) + shape
         _assert_same_steps((fused_step.from_resident(CFG, res), obs, r, d),
                            want)
     cfg3 = EnvConfig(num_agents=1, ticks_per_step=4, arena_size=200,
@@ -198,10 +245,10 @@ def _step_compositions_match_plain(dev, n):
     cm[2, 0, :2], ca[2, 0, 1], cid[2, 0, 1] = 20000, True, 9
     cp[2, 0, 1] = cp[2, 0, 0] + torch.tensor([30.0, 0.0], device=dev)
     nid = s.next_cell_id.clone()
-    nid[2] = 10                     # cell ids stay unique, as K1 assumes
+    nid[2] = 10
     s = s.replace(cell_alive=ca, cell_mass=cm, cell_id=cid, cell_pos=cp,
                   next_cell_id=nid)
-    plain = VecEnv(cfg3, n, "screen", backend="torch", device=dev,
+    plain = VecEnv(cfg3, n, obs_type, backend="torch", device=dev,
                    obs_config=scr, auto_reset=True,
                    respawn_main_during_obs=True)
     want = plain.multi_step(s, acts, 2)
@@ -217,6 +264,10 @@ def _step_compositions_match_plain(dev, n):
 
 def test_step_compositions_on_cpu_planes_match_plain(no_build):
     _step_compositions_match_plain(torch.device("cpu"), 4)
+
+
+def test_grid_step_compositions_on_cpu_planes_match_plain(no_build):
+    _step_compositions_match_plain(torch.device("cpu"), 4, "grid")
 
 
 def test_failed_build_raises(monkeypatch, tmp_path):
@@ -321,3 +372,76 @@ def test_step_compositions_on_the_card_match_plain(cuda_device):
     launches = FT.launches, FS.launches
     _step_compositions_match_plain(cuda_device, 512)
     assert (FT.launches - launches[0], FS.launches - launches[1]) == (8, 8)
+
+
+def _equal_id_state(n, dev):
+    """Mode-3 states in which the player's two cells share the id 9, as a
+    hand-made state can: 20000-mass pairs 30 or 4 apart (one pellet inside
+    both), and 300-mass pairs."""
+    s = env_reset(CFG3, reset_seeds(n, 2, dev))
+    cm, ca = s.cell_mass.clone(), s.cell_alive.clone()
+    cid, cp = s.cell_id.clone(), s.cell_pos.clone()
+    heavy = torch.arange(n, device=dev) % 2 == 0
+    cm[:, 0, :2] = torch.where(heavy, 20000, 300)[:, None]
+    ca[:, 0, 1] = True
+    cid[:, 0, :2] = 9
+    dx = torch.where(torch.arange(n, device=dev) % 4 < 2, 30.0, 4.0)
+    cp[:, 0, 1, 0] = cp[:, 0, 0, 0] + dx
+    cp[:, 0, 1, 1] = cp[:, 0, 0, 1]
+    return s.replace(cell_alive=ca, cell_mass=cm, cell_id=cid, cell_pos=cp)
+
+
+CFG3 = EnvConfig(num_agents=1, ticks_per_step=4, arena_size=200,
+                 num_pellets=150, num_viruses=6, reward_type=True, mode=3)
+
+
+@pytest.mark.gpu
+def test_multi_step_kernel_matches_plain_with_equal_ids(cuda_device):
+    """K1 keeps both cells of one id in its rank order, lets both eat a
+    pellet they both reach (as the plain engine's rank rule does) and
+    never moves a pair of equal rank."""
+    s = _equal_id_state(512, cuda_device)
+    acts = torch.tensor([[[0.6, -0.4, 0.0]]],
+                        device=cuda_device).expand(512, 1, 3)
+    before = FT.launches
+    rk, ok, rwk, dk = fused_step.multi_step_resident(
+        CFG3, fused_step.to_resident(CFG3, s), acts, 1, None)
+    rp, op, rwp, dp = fused_step.multi_step_resident(
+        CFG3, fused_step.to_resident(CFG3, s), acts, 1, None,
+        step=FT.multi_step_raw_plain)
+    assert FT.launches == before + 1
+    sk, sp = (fused_step.from_resident(CFG3, rk),
+              fused_step.from_resident(CFG3, rp))
+    assert int(_int_mismatch(sk, sp).sum()) == 0
+    for f in STATE_FIELDS:
+        x, y = getattr(sk, f), getattr(sp, f)
+        if x.dtype.is_floating_point:
+            torch.testing.assert_close(x, y, rtol=0, atol=2e-3, msg=f)
+    torch.testing.assert_close(rwk, rwp, rtol=0, atol=1e-5)
+    assert int(sk.food_eaten.sum()) > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("grid", [
+    GridObsConfig(grid_size=64, out_dtype="int16"),
+    GridObsConfig(grid_size=128, out_dtype="int32", observe_pellets=False)])
+def test_grid_kernel_matches_plain(cuda_device, grid):
+    heavy = _eventful_state(512, cuda_device)
+    cm = heavy.cell_mass.clone()
+    cm[:8, 0, 0] = 40000                         # saturates int16
+    cases = [(CFG, heavy.replace(cell_mass=cm)), _two_player_state(heavy)]
+    for cfg, s in cases:
+        planes = FT.to_kernel_arrays(s)
+        before = FG.launches
+        got = FG.fused_grid_frame(cfg, grid, planes)
+        assert FG.launches == before + 1
+        want = FG.frame_plain(cfg, grid, planes)
+        assert got.dtype == want.dtype and int((got != want).sum()) == 0
+    assert bool((want[:, 0, -1] > 0).any())            # others drawn
+
+
+@pytest.mark.gpu
+def test_grid_step_compositions_on_the_card_match_plain(cuda_device):
+    launches = FT.launches, FG.launches
+    _step_compositions_match_plain(cuda_device, 512, "grid")
+    assert (FT.launches - launches[0], FG.launches - launches[1]) == (8, 8)

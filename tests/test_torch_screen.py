@@ -41,7 +41,7 @@ def _played(kw, seed, steps, split=False, n=N):
     ends with 2-10 cells."""
     cfg = JCfg(**kw)
     step = jax.jit(jax.vmap(functools.partial(j_step, cfg)))
-    states = jax.vmap(functools.partial(j_reset, cfg))(
+    states = jax.jit(jax.vmap(functools.partial(j_reset, cfg)))(
         jnp.arange(n, dtype=jnp.uint32) + seed)
     if split:
         states = states.replace(cell_mass=states.cell_mass.at[:, 0, 0].set(
@@ -103,7 +103,7 @@ def test_rasterizer_matches_pallas_kernel_with_a_bot():
     cfg = JCfg(**DUEL)
     S = 41
     got = np.asarray(JFS.fused_screen_frame(
-        cfg, JS.ScreenObsConfig(S, agent_view=True), js, block_envs=N,
+        cfg, JS.ScreenObsConfig(S, agent_view=True), js, block_envs=1,
         interpret=True))[:, 0]
     secs, offs, n_other, Ks = _jax_sections(DUEL, js, S)
     mine = _plain_packed(DUEL, secs, S, True).view(np.uint8).reshape(
@@ -113,7 +113,7 @@ def test_rasterizer_matches_pallas_kernel_with_a_bot():
     S = 84
     tab, offs, n_other, Ks = JFS._build_table(cfg, S, js)
     packed = np.asarray(JFS._rasterize_table(
-        cfg, S, tab, offs, n_other, Ks, block_envs=N, interpret=True,
+        cfg, S, tab, offs, n_other, Ks, block_envs=1, interpret=True,
         packed_table=JFS._packed_palette(False)))
     secs, _, _, _ = _jax_sections(DUEL, js, S)
     np.testing.assert_array_equal(_plain_packed(DUEL, secs, S, False),
@@ -294,7 +294,7 @@ def test_rasterizer_arithmetic_matches_pallas_on_crafted_boundaries():
     secs["vr2"][4:6, :20] = vr2
     want = np.asarray(JFS._rasterize_sections(
         cfg, S, {k: jnp.asarray(v) for k, v in secs.items()},
-        JFS._meta_offs(meta), 0, JFS._section_Ks(cfg, S), block_envs=n,
+        JFS._meta_offs(meta), 0, JFS._section_Ks(cfg, S), block_envs=1,
         interpret=True))
     got = TFS.rasterize_plain(TCfg(**SOLO), S, {
         k: torch.from_numpy(v) for k, v in secs.items()}).numpy()
@@ -311,7 +311,7 @@ def test_class_map_arithmetic_matches_xla_on_crafted_boundaries():
     kw = dict(SOLO, arena_size=350, num_viruses=10)
     cfg = JCfg(**kw)
     S, n = 41, 8
-    js = jax.vmap(functools.partial(j_reset, cfg))(
+    js = jax.jit(jax.vmap(functools.partial(j_reset, cfg)))(
         jnp.arange(n, dtype=jnp.uint32))
     mass = rng.integers(25, 3000, n).astype(np.int32)
     w = mass.astype(F32)
@@ -368,7 +368,7 @@ def _oracle_scenarios():
     kw = dict(num_agents=1, ticks_per_step=1, arena_size=100, num_pellets=4,
               num_viruses=1, mode=4)
     cfg = JCfg(**kw)
-    state = j_reset(cfg, 2)
+    state = jax.jit(functools.partial(j_reset, cfg))(2)
     center = jnp.array([50.0, 50.0])
     ppos = state.pellet_xy_alive(cfg)[0]
     for i, d in enumerate(((0.9, 0.0), (-0.49, 0.0), (0.0, 3.0),
@@ -383,13 +383,14 @@ def _oracle_scenarios():
     big_kw = dict(num_agents=1, ticks_per_step=2, arena_size=200,
                   num_pellets=40, num_viruses=3, mode=6)
     bcfg = JCfg(**big_kw)
-    big = j_reset(bcfg, 5)
+    big = jax.jit(functools.partial(j_reset, bcfg))(5)
+    step = jax.jit(functools.partial(j_step, bcfg))
     rng = np.random.default_rng(5)
     for _ in range(6):
         acts = np.zeros((1, 3), np.float32)
         acts[:, :2] = rng.uniform(-1, 1, (1, 2))
         acts[:, 2] = rng.integers(0, 3, 1)
-        big, _, _ = j_step(bcfg, big, acts)
+        big, _, _ = step(big, acts)
     return [(kw, cross, 41), (kw, cross, 84), (big_kw, big, 64)]
 
 
@@ -398,14 +399,15 @@ def test_screen_frame_matches_xla_on_oracle_scenarios():
         ts = _to_port(jax.tree.map(lambda x: x[None], js))
         for av in (False, True):
             ocfg_j = JS.ScreenObsConfig(screen_len=S, agent_view=av)
-            want = np.asarray(JS.screen_frame(JCfg(**kw), ocfg_j, js))
+            want = np.asarray(jax.jit(functools.partial(
+                JS.screen_frame, JCfg(**kw), ocfg_j))(js))
             got = TS.screen_frame(TCfg(**kw), TS.ScreenObsConfig(S, av), ts)
             np.testing.assert_array_equal(got[0].numpy(), want)
         if kw["mode"] == 6:
             assert (want[0, ..., 3] == 230).sum() > 100   # big main cell
     rgb = TS.render_rgb(TCfg(**kw), ts, size=32)
-    np.testing.assert_array_equal(
-        rgb[0].numpy(), np.asarray(JS.render_rgb(JCfg(**kw), js, size=32)))
+    np.testing.assert_array_equal(rgb[0].numpy(), np.asarray(jax.jit(
+        functools.partial(JS.render_rgb, JCfg(**kw), size=32))(js)))
 
 
 def _same_game_envs(js, ts):

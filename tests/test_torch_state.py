@@ -6,16 +6,21 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from agarcl_tpu import EnvConfig as JCfg
 from agarcl_tpu import env_reset as j_reset
+from agarcl_tpu import env_step as j_step
 from agarcl_tpu.engine.tick import engine_tick as j_tick
 from agarcl_tpu.ops.fused_tick import _from_kernel_arrays, _to_kernel_arrays
 from agarcl_tpu.state import decode_pellet_xy, encode_pellet_key
 from agarcl_tpu_torch import EnvConfig as TCfg
 from agarcl_tpu_torch import state as TS
 from agarcl_tpu_torch.bridge import state_from_numpy, state_to_numpy
+from agarcl_tpu_torch.engine.tick import engine_tick as t_tick
+from agarcl_tpu_torch.env import env_reset as t_reset
+from agarcl_tpu_torch.env import env_step as t_step
 from agarcl_tpu_torch.ops import fused_tick as FT
 
 KW = dict(num_agents=1, ticks_per_step=4, arena_size=110, num_pellets=60,
@@ -32,7 +37,7 @@ def _stepped_state():
     """A batched JAX state with several cells per player (splits of a
     heavy cell), after a few ticks."""
     cfg = JCfg(**KW)
-    s = jax.vmap(functools.partial(j_reset, cfg))(
+    s = jax.jit(jax.vmap(functools.partial(j_reset, cfg)))(
         jnp.asarray([0, 1, 2, 2**32 - 5, 2**31, 77], jnp.uint32))
     s = s.replace(cell_mass=s.cell_mass.at[:, 0, 0].set(300),
                   action=jnp.full((N, 1), 2, jnp.int32))
@@ -130,3 +135,46 @@ def test_kernel_planes_are_copies():
     plane_ptrs = {p.data_ptr() for p in planes}
     assert not plane_ptrs & {getattr(back, f).data_ptr()
                              for f in TS.STATE_FIELDS}
+
+
+def _assert_fields_equal(js, ts):
+    t = state_to_numpy(ts)
+    for f, a in _jax_fields(js).items():
+        np.testing.assert_array_equal(t[f], a, err_msg=f)
+
+
+@pytest.mark.parametrize("mode", [1, 2, 3, 4, 5, 6])
+def test_reset_float_state_bit_equal_to_jax(mode):
+    """Every field of a reset, floats included, equals
+    jit(vmap(env_reset))'s: the spawn draw fma(f32(W - 2r), u, f32(r)) is
+    XLA-CPU's fused form (engine/spawn.py::random_location)."""
+    kw = dict(KW, mode=mode)
+    seeds = np.array([0, 7, 4242, 2**31, 2**32 - 1], np.uint32)
+    js = jax.jit(jax.vmap(functools.partial(j_reset, JCfg(**kw))))(
+        jnp.asarray(seeds))
+    _assert_fields_equal(js, t_reset(TCfg(**kw), torch.from_numpy(
+        seeds.astype(np.int64))))
+
+
+def test_respawn_and_regen_draws_bit_equal_to_jax():
+    """The same draw in its other two contexts: a dead main player
+    respawned by a jitted env_step (respawn_main_during_obs), and viruses
+    regenerated by a jitted engine tick at a regen tick."""
+    cfg_j, cfg_t = JCfg(**KW), TCfg(**KW)
+    seeds = jnp.arange(N, dtype=jnp.uint32) + 3
+    js = jax.jit(jax.vmap(functools.partial(j_reset, cfg_j)))(seeds)
+    dead = js.replace(cell_alive=jnp.zeros_like(js.cell_alive))
+    acts = np.zeros((N, 1, 3), np.float32)
+    step = jax.jit(jax.vmap(functools.partial(
+        j_step, cfg_j, respawn_main_during_obs=True)))
+    jout, _, _ = step(dead, jnp.asarray(acts))
+    tout, _, _ = t_step(cfg_t, state_from_numpy(_jax_fields(dead)),
+                        torch.from_numpy(acts), True)
+    assert bool(np.asarray(jout.main_respawned).all())
+    _assert_fields_equal(jout, tout)
+    regen = js.replace(virus_alive=jnp.zeros_like(js.virus_alive),
+                       ticks=jnp.full_like(js.ticks, 240))
+    jt = jax.jit(jax.vmap(functools.partial(j_tick, cfg_j)))(regen)
+    tt = t_tick(cfg_t, state_from_numpy(_jax_fields(regen)))
+    assert bool(np.asarray(jt.virus_alive).sum(-1).min() == KW["num_viruses"])
+    _assert_fields_equal(jt, tt)

@@ -62,10 +62,10 @@ def test_resident_multi_step_matches_pallas_interpret():
     assert isinstance(res, fused_step.ResidentState)
     jres = JFS.to_resident(cfg_j, js)
     obs_fn = functools.partial(j_ram, cfg_j, JR())
-    for _ in range(2):
-        res, *t_out = tenv.multi_step(res, ACTS, K)
+    for k in (2, 1):                  # the carrier passes between calls
+        res, *t_out = tenv.multi_step(res, ACTS, k)
         jres, *j_out = JFS.fused_env_multi_step_resident(
-            cfg_j, jres, jnp.asarray(ACTS), K, obs_fn=obs_fn, block_envs=4,
+            cfg_j, jres, jnp.asarray(ACTS), k, obs_fn=obs_fn, block_envs=4,
             interpret=True)
         _compare_step(j_out, t_out)
     _compare_state(JFS.from_resident(cfg_j, js, jres), tenv.materialize(res))
@@ -101,7 +101,7 @@ def test_step_shapes_and_obs_none():
 
 
 def test_vecenv_rejects_unported_configurations():
-    with pytest.raises(ValueError):
-        TVec(TCfg(**KW), N, "grid")
+    with pytest.raises(ValueError, match="gobigger"):
+        TVec(TCfg(**KW), N, "gobigger", backend="torch", device="cpu")
     with pytest.raises(NotImplementedError):
         TVec(TCfg(**dict(KW, mode=7)), N, "ram")
