@@ -75,6 +75,8 @@ struct EnvParams {
   int qlx, nqx, qly, nqy, kp, kv, R, kbits_p, kbits_v;
   float W, H, dt, inv_w, inv_h, p_invx, p_invy, kdec_split, kdec_food;
   float spawn_k, virus_hi_x, virus_hi_y, virus_rad;
+  int n_bots;                    // bots in the roster
+  int bot_type[MAX_PLAYERS];     // per pid: 0 agent, 1-4 the bot types
 };
 
 // The 41 (feature, N) state planes in _SPLIT_PLAN order

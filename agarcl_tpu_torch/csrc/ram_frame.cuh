@@ -34,14 +34,16 @@ HD void ram_frame_env(const EnvParams& p, const Planes& s, int n, int N,
     float tot = 0.0f, sx = 0.0f, sy = 0.0f;
     int im = 0;
     bool al = false;
+    // XLA's centroid (state.py::xla_centroid_of): the numerator is a
+    // chain of fmas in slot order
     for (int c = 0; c < Cc; c++) {
       const int r = (q * Cc + c) * N + n;
       const bool ca = s.calive[r] != 0;
       const int m = ca ? s.cmass[r] : 0;
       const float w = float(m);
       tot = tot + w;
-      sx = sx + s.cx[r] * w;
-      sy = sy + s.cy[r] * w;
+      sx = c == 0 ? s.cx[r] * w : FMAF(s.cx[r], w, sx);
+      sy = c == 0 ? s.cy[r] * w : FMAF(s.cy[r], w, sy);
       im += m;
       al = al || ca;
     }

@@ -1,37 +1,58 @@
 // Kernel K1: k whole env steps per launch on the resident state planes.
 //
 // Replaces the TPU kernel agarcl_tpu/ops/fused_tick.py::_make_kernel in
-// its n_steps mode (launched by _multi_step_raw_core) for one player
-// without bots. For each step one thread applies the agent actions
-// (env.py::apply_actions), runs ticks_per_step engine ticks
-// (engine/tick.py: movement and the 5-pass Jacobi relax, virus events,
-// pellet eat, auto-split, food eat, feed, split, placement, recombine,
-// decay, food movement with virus feeding, regen), then writes that
-// step's RAM frame (ram_frame.cuh) and its (mass, alive) row. Wrapper and
-// plain version: agarcl_tpu_torch/ops/fused_tick.py.
+// its n_steps mode (launched by _multi_step_raw_core), for rosters of up to
+// 9 players: one or more agents plus the scripted bots. For each step one
+// thread applies the agent actions (env.py::apply_actions), runs
+// ticks_per_step engine ticks (engine/tick.py: bot decisions, movement and
+// the 5-pass Jacobi relax, virus events, pellet eat, auto-split, food eat,
+// feed, split, placement, recombine, decay, cross-player eating, food
+// movement with virus feeding, regen), then writes that step's RAM frame
+// for every agent (ram_frame.cuh) and every player's (mass, alive) row.
+// Wrapper and plain version: agarcl_tpu_torch/ops/fused_tick.py.
 //
 // Design: one thread per env, 128-thread blocks (64 blocks at 8192 envs).
 // The TPU kernel's machinery — envs in vector lanes, VMEM-scratch chunk
 // loops, log-shift prefix sums, parking dead pellets at 1e9, untaken-branch
 // workarounds — has no counterpart: each thread walks its env's phases in
 // order, as the scalar C++ oracle (oracle/oracle.cpp::engine_tick) does.
-// The 16 cells live in per-thread arrays for the whole launch; pellets,
-// viruses and foods stay in their (feature, N) planes and are walked in
-// place, so a warp's accesses to one feature are coalesced.
+// The players' cells live in per-thread arrays for the whole launch;
+// pellets, viruses and foods stay in their (feature, N) planes and are
+// walked in place, so a warp's accesses to one feature are coalesced.
+//
+// Several players, resolved in one thread. The plain engine resolves every
+// contest at once by (pid, rank) keys (SPEC M1-M5); here a thread walks
+// players in pid order and cells in rank order, and each phase keeps the
+// plain engine's snapshot: pellets and foods go to the first eater in that
+// walk (and the cells of its rank); a player's virus event is its best
+// (rank, virus) pair over the viruses alive at the phase's start, and it is
+// dropped, with no fallback, when a lower pid claimed that virus; foods
+// enter the shared ring in (pid, rank) order; new cells take ids kind by
+// kind (pops of all players, then auto-splits, then splits); cross-player
+// eating tests the masses and live cells of its start (so an eaten cell
+// still eats, and a gain is never seen by a later eater) and sums the gains
+// in int32. The bot pass reads the start-of-tick state. The player capacity
+// PC is a template argument chosen at launch from P (1, 2 or 9), so one
+// player compiles to the arrays and loops it had before bots existed.
 //
 // What bounds it on Hopper: per tick and env the pellet pass (Np x live
-// cells distance tests, 500 x 16 at most on the main path) and, per step,
-// the RAM frame's k-nearest scans (32 x 500 key evaluations); both read
+// cells distance tests, 500 x 16 x P at most) and, per step, the RAM
+// frame's k-nearest scans (32 x 500 key evaluations per agent); both read
 // the env's pellet keys, 2 KB per env, which stay in L1/L2 (8192 envs x
-// 2 KB = 16 MB < 50 MB L2). The design tests cells in rank order and stops
-// after the first eater of a pellet (and the cells of equal rank), and
-// never materializes the pairwise
-// tables the TPU kernel builds. With ~6 KB of state and several KB of
-// per-thread arrays, occupancy is low; that is accepted for this first,
-// simple version.
+// 2 KB = 16 MB < 50 MB L2). The design tests cells in (pid, rank) order and
+// stops after the first eater of a pellet, and never materializes the
+// pairwise tables the TPU kernel builds. With ~6 KB of state per player and
+// several KB of per-thread arrays, occupancy is low; that is accepted for
+// this first, simple version.
 #include "ram_frame.cuh"
 
 namespace agarcl {
+
+constexpr int BOT_ACTION_PERIOD = 10;
+constexpr uint32_t STREAM_BOT = 4;
+constexpr float SHY_RADIUS = 25.0f;
+constexpr float AGGRESSIVE_RADIUS = 20.0f;
+constexpr int CELL_EAT_REQUIREMENT = 25;
 
 struct V2 { float x, y; };
 
@@ -44,61 +65,93 @@ struct Cells {
 
 struct NewCell { float x, y, vx, vy, sx, sy; int m, rec; };
 
-// per-thread working copy of one env's player and cell state
-struct Env {
-  Cells c;
+// a virus pop's candidates are a function of these (disrupt_candidates)
+struct Pop { float vx, vy, cvx, cvy; int pop_mass, num_new; };
+
+// one player's scalar state
+struct Player {
   float tx, ty, anti_team;
   int action, split_cd, feed_cd, elapsed, last_decay;
   int vticks[MAX_TICKS_RING];
   int vptr, food_eaten, highest, viruses_eaten, cells_eaten;
+};
+
+// per-thread working copy of one env's players and cells
+template <int PC>
+struct Env {
+  Cells c[PC];
+  Player pl[PC];
   int next_id, fnext, ticks;
   uint32_t seed;
 };
 
 #define AT(plane, f) (plane)[(long long)(f) * N + n]
 
+// the player count a PC-capacity kernel walks (1 is known at compile time)
+template <int PC>
+HD int players(const EnvParams& p) { return PC == 1 ? 1 : p.P; }
+
+template <int PC>
 HD void load_env(const EnvParams& p, const Planes& s, int n, int N,
-                 Env& e) {
-  for (int i = 0; i < p.Cc; i++) {
-    e.c.x[i] = AT(s.cx, i); e.c.y[i] = AT(s.cy, i);
-    e.c.vx[i] = AT(s.cvx, i); e.c.vy[i] = AT(s.cvy, i);
-    e.c.sx[i] = AT(s.svx, i); e.c.sy[i] = AT(s.svy, i);
-    e.c.m[i] = AT(s.cmass, i); e.c.id[i] = AT(s.cid, i);
-    e.c.rec[i] = AT(s.crecomb, i); e.c.al[i] = AT(s.calive, i) != 0;
+                 Env<PC>& e) {
+  const int Cc = p.Cc;
+  for (int q = 0; q < players<PC>(p); q++) {
+    Cells& c = e.c[q];
+    for (int i = 0; i < Cc; i++) {
+      const int f = q * Cc + i;
+      c.x[i] = AT(s.cx, f); c.y[i] = AT(s.cy, f);
+      c.vx[i] = AT(s.cvx, f); c.vy[i] = AT(s.cvy, f);
+      c.sx[i] = AT(s.svx, f); c.sy[i] = AT(s.svy, f);
+      c.m[i] = AT(s.cmass, f); c.id[i] = AT(s.cid, f);
+      c.rec[i] = AT(s.crecomb, f); c.al[i] = AT(s.calive, f) != 0;
+    }
+    Player& u = e.pl[q];
+    u.tx = AT(s.tx, q); u.ty = AT(s.ty, q);
+    u.action = AT(s.action, q); u.split_cd = AT(s.split_cd, q);
+    u.feed_cd = AT(s.feed_cd, q); u.elapsed = AT(s.elapsed, q);
+    u.last_decay = AT(s.last_decay, q); u.anti_team = AT(s.anti_team, q);
+    for (int k = 0; k < p.K; k++) u.vticks[k] = AT(s.vticks, q * p.K + k);
+    u.vptr = AT(s.vptr, q); u.food_eaten = AT(s.food_eaten, q);
+    u.highest = AT(s.highest, q); u.viruses_eaten = AT(s.viruses_eaten, q);
+    u.cells_eaten = AT(s.cells_eaten, q);
   }
-  e.tx = AT(s.tx, 0); e.ty = AT(s.ty, 0);
-  e.action = AT(s.action, 0); e.split_cd = AT(s.split_cd, 0);
-  e.feed_cd = AT(s.feed_cd, 0); e.elapsed = AT(s.elapsed, 0);
-  e.last_decay = AT(s.last_decay, 0); e.anti_team = AT(s.anti_team, 0);
-  for (int k = 0; k < p.K; k++) e.vticks[k] = AT(s.vticks, k);
-  e.vptr = AT(s.vptr, 0); e.food_eaten = AT(s.food_eaten, 0);
-  e.highest = AT(s.highest, 0); e.viruses_eaten = AT(s.viruses_eaten, 0);
-  e.cells_eaten = AT(s.cells_eaten, 0); e.next_id = AT(s.next_id, 0);
+  e.next_id = AT(s.next_id, 0);
   e.fnext = AT(s.fnext, 0); e.ticks = AT(s.ticks, 0);
   e.seed = uint32_t(AT(s.seed, 0));
 }
 
+template <int PC>
 HD void store_cells(const EnvParams& p, const Planes& s, int n, int N,
-                    const Env& e) {
-  for (int i = 0; i < p.Cc; i++) {
-    AT(s.cx, i) = e.c.x[i]; AT(s.cy, i) = e.c.y[i];
-    AT(s.cvx, i) = e.c.vx[i]; AT(s.cvy, i) = e.c.vy[i];
-    AT(s.svx, i) = e.c.sx[i]; AT(s.svy, i) = e.c.sy[i];
-    AT(s.cmass, i) = e.c.m[i]; AT(s.cid, i) = e.c.id[i];
-    AT(s.crecomb, i) = e.c.rec[i]; AT(s.calive, i) = e.c.al[i] ? 1 : 0;
+                    const Env<PC>& e) {
+  const int Cc = p.Cc;
+  for (int q = 0; q < players<PC>(p); q++) {
+    const Cells& c = e.c[q];
+    for (int i = 0; i < Cc; i++) {
+      const int f = q * Cc + i;
+      AT(s.cx, f) = c.x[i]; AT(s.cy, f) = c.y[i];
+      AT(s.cvx, f) = c.vx[i]; AT(s.cvy, f) = c.vy[i];
+      AT(s.svx, f) = c.sx[i]; AT(s.svy, f) = c.sy[i];
+      AT(s.cmass, f) = c.m[i]; AT(s.cid, f) = c.id[i];
+      AT(s.crecomb, f) = c.rec[i]; AT(s.calive, f) = c.al[i] ? 1 : 0;
+    }
   }
 }
 
+template <int PC>
 HD void store_player(const EnvParams& p, const Planes& s, int n, int N,
-                     const Env& e) {
-  AT(s.tx, 0) = e.tx; AT(s.ty, 0) = e.ty;
-  AT(s.action, 0) = e.action; AT(s.split_cd, 0) = e.split_cd;
-  AT(s.feed_cd, 0) = e.feed_cd; AT(s.elapsed, 0) = e.elapsed;
-  AT(s.last_decay, 0) = e.last_decay; AT(s.anti_team, 0) = e.anti_team;
-  for (int k = 0; k < p.K; k++) AT(s.vticks, k) = e.vticks[k];
-  AT(s.vptr, 0) = e.vptr; AT(s.food_eaten, 0) = e.food_eaten;
-  AT(s.highest, 0) = e.highest; AT(s.viruses_eaten, 0) = e.viruses_eaten;
-  AT(s.cells_eaten, 0) = e.cells_eaten; AT(s.next_id, 0) = e.next_id;
+                     const Env<PC>& e) {
+  for (int q = 0; q < players<PC>(p); q++) {
+    const Player& u = e.pl[q];
+    AT(s.tx, q) = u.tx; AT(s.ty, q) = u.ty;
+    AT(s.action, q) = u.action; AT(s.split_cd, q) = u.split_cd;
+    AT(s.feed_cd, q) = u.feed_cd; AT(s.elapsed, q) = u.elapsed;
+    AT(s.last_decay, q) = u.last_decay; AT(s.anti_team, q) = u.anti_team;
+    for (int k = 0; k < p.K; k++) AT(s.vticks, q * p.K + k) = u.vticks[k];
+    AT(s.vptr, q) = u.vptr; AT(s.food_eaten, q) = u.food_eaten;
+    AT(s.highest, q) = u.highest; AT(s.viruses_eaten, q) = u.viruses_eaten;
+    AT(s.cells_eaten, q) = u.cells_eaten;
+  }
+  AT(s.next_id, 0) = e.next_id;
   AT(s.fnext, 0) = e.fnext; AT(s.ticks, 0) = e.ticks;
 }
 
@@ -122,14 +175,13 @@ HD V2 clamp2(const EnvParams& p, V2 v, float r) {
 
 // ------------------------------------------------------------- movement
 // physics.py::move_cells
-HD void move_cells(const EnvParams& p, Env& e) {
-  Cells& c = e.c;
+HD void move_cells(const EnvParams& p, Cells& c, float tx, float ty) {
   for (int i = 0; i < p.Cc; i++) {
     if (!c.al[i]) {
       c.x[i] = c.y[i] = c.vx[i] = c.vy[i] = c.sx[i] = c.sy[i] = 0.0f;
       continue;
     }
-    const float dx = e.tx - c.x[i], dy = e.ty - c.y[i];
+    const float dx = tx - c.x[i], dy = ty - c.y[i];
     const float speed = sqrtf(norm2(3.0f * dx, 3.0f * dy));
     const float lim = max_speed(float(c.m[i]));
     const float scale = speed > lim ? lim / fmaxf(speed, 1e-12f) : 1.0f;
@@ -267,8 +319,8 @@ HD void add_update(V2* p, V2* v, uint32_t& has, int i, V2 np_, V2 nv) {
 // mutual and its ranks differ, and a cell in several such pairs takes the
 // sum of its updates (as "a", the lower rank, before as "b"), as the plain
 // engine's masked sums give. Cells and pairs are walked as bit sets.
-HD void self_collisions(const EnvParams& p, Env& e, const int* rank) {
-  Cells& c = e.c;
+HD void self_collisions(const EnvParams& p, Cells& c, const int* rank,
+                        float tgx, float tgy) {
   const int Cc = p.Cc;
   float rad[MAX_CELLS];
   uint32_t live = 0;
@@ -304,7 +356,7 @@ HD void self_collisions(const EnvParams& p, Env& e, const int* rank) {
         V2 pb = {c.x[j], c.y[j]}, vb = {c.vx[j], c.vy[j]};
         if (pass < 5) {
           prevent_overlap(p, pa, va, {c.sx[i], c.sy[i]}, c.m[i], pb, vb,
-                          {c.sx[j], c.sy[j]}, c.m[j], e.tx, e.ty);
+                          {c.sx[j], c.sy[j]}, c.m[j], tgx, tgy);
         } else {
           avoid_static(p, pa, va, pb, vb, rad[i], rad[j]);
         }
@@ -342,77 +394,294 @@ HD NewCell split_fields(const EnvParams& p, float x, float y, int mass,
           elapsed + RECOMBINE_TICKS};
 }
 
+// candidate k of a virus pop (actions.py::disrupt_candidates, SPEC Q3)
+HD NewCell pop_candidate(const Pop& pop, int k, int elapsed) {
+  const float theta = direction(pop.cvx, pop.cvy);
+  const float nn = float(pop.num_new > 1 ? pop.num_new : 1);
+  const float pop_speed = max_speed(float(CELL_POP_SIZE));
+  const float ang = theta + (theta + TWO_PI32 * float(k) / nn);
+  int mk = pop.pop_mass - CELL_POP_SIZE * k;
+  mk = mk < CELL_POP_SIZE ? mk : CELL_POP_SIZE;
+  return {pop.vx, pop.vy, pop.cvx, pop.cvy,
+          float(cos(double(ang))) * pop_speed,
+          float(sin(double(ang))) * pop_speed,
+          mk > 1 ? mk : 1, elapsed + RECOMBINE_TICKS};
+}
+
 // place_new_cells (SPEC M8): candidates take the lowest free slots in
-// creation order with consecutive fresh ids
-HD void place_new_cells(const EnvParams& p, Env& e, const NewCell* cand,
+// creation order with consecutive fresh ids; a pop's candidates are made
+// here from its record
+HD void place_new_cells(const EnvParams& p, Cells& c, int& next_id,
+                        const NewCell* cand, const Pop* pop, int elapsed,
                         int count) {
-  Cells& c = e.c;
   int k = 0;
   for (int i = 0; i < p.Cc && k < count; i++) {
     if (c.al[i]) continue;
-    const NewCell& nc = cand[k];
+    const NewCell nc = pop ? pop_candidate(*pop, k, elapsed) : cand[k];
     c.x[i] = nc.x; c.y[i] = nc.y; c.vx[i] = nc.vx; c.vy[i] = nc.vy;
     c.sx[i] = nc.sx; c.sy[i] = nc.sy;
     c.m[i] = nc.m > CELL_MIN_SIZE ? nc.m : CELL_MIN_SIZE;
-    c.id[i] = e.next_id + k;
+    c.id[i] = next_id + k;
     c.rec[i] = nc.rec;
     c.al[i] = true;
     k++;
   }
-  e.next_id += k;
+  next_id += k;
 }
 
-// ------------------------------------------------------------ one tick
-// engine/tick.py::engine_tick for one player without bots
-HD void engine_tick(const EnvParams& p, const Planes& s, int n, int N,
-                    Env& e) {
-  Cells& c = e.c;
-  const int Cc = p.Cc, Nv = p.Nv, Nf = p.Nf;
-  bool palive = false;
-  for (int i = 0; i < Cc; i++) palive = palive || c.al[i];
-  const int action_eff = palive ? e.action : 0;
-  e.elapsed += palive ? 1 : 0;
+// the centroid in XLA's form (state.py::xla_centroid_of): slot-order
+// total, numerator a chain of fmas
+HD V2 xla_centroid(const Cells& c, int Cc) {
+  float tot = 0.0f, sx = 0.0f, sy = 0.0f;
+  for (int i = 0; i < Cc; i++) {
+    const float w = c.al[i] ? float(c.m[i]) : 0.0f;
+    tot = i == 0 ? w : tot + w;
+    sx = i == 0 ? c.x[i] * w : FMAF(c.x[i], w, sx);
+    sy = i == 0 ? c.y[i] * w : FMAF(c.y[i], w, sy);
+  }
+  const float den = fmaxf(tot, 1.0f);
+  return {sx / den, sy / den};
+}
 
-  // --- 3. movement + relax ---------------------------------------------
-  move_cells(p, e);
-  int rank[MAX_CELLS];
-  cell_ranks(c, Cc, rank);
-  self_collisions(p, e, rank);
-  // live cells by rank, cells of one rank (equal ids) in slot order
-  int order[MAX_CELLS];
-  int n_start = 0;
-  for (int i = 0; i < Cc; i++) n_start += c.al[i] ? 1 : 0;
-  for (int r = 0, k = 0; r < n_start; r++)
-    for (int i = 0; i < Cc; i++)
-      if (c.al[i] && rank[i] == r) order[k++] = i;
-
-  // --- 4. virus events (SPEC M2) ------------------------------------------
-  NewCell cand_pop[PLAYER_CELL_LIMIT];
-  int n_disrupt = 0;
-  {
-    int best = BIG_I, bc = 0;
+// ------------------------------------------------------------ bots
+// engine/bots.py::bot_decide for every live bot, from the start-of-tick
+// state: the nearest pellet (first of equal distances; (0, 0) when live
+// pellets exist but none is farther than 0.01; the floor of a random draw
+// when none lives), flee from the first other live player within
+// SHY_RADIUS, hunt the first one within AGGRESSIVE_RADIUS with edible mass
+template <int PC>
+HD void bot_pass(const EnvParams& p, const Planes& s, int n, int N,
+                 Env<PC>& e) {
+  const int P = players<PC>(p), Cc = p.Cc;
+  V2 cen[PC];
+  int pm[PC];
+  bool pal[PC];
+  for (int q = 0; q < P; q++) {
+    cen[q] = xla_centroid(e.c[q], Cc);
+    int m = 0;
+    bool al = false;
     for (int i = 0; i < Cc; i++) {
-      if (!c.al[i]) continue;
-      const float rc = radius(float(c.m[i]));
-      for (int v = 0; v < Nv; v++) {
-        if (!AT(s.valive, v)) continue;
-        const int vm = AT(s.vmass, v);
-        const float rm = fmaxf(rc, radius(float(vm)));
-        const bool can = float(c.m[i]) > float(vm) * 1.1f;
-        if (can && rm * rm >= norm2(c.x[i] - AT(s.vx, v),
-                                    c.y[i] - AT(s.vy, v))) {
-          const int key = rank[i] * Nv + v;
-          if (key < best) { best = key; bc = i; }
+      m += e.c[q].al[i] ? e.c[q].m[i] : 0;
+      al = al || e.c[q].al[i];
+    }
+    pm[q] = m;
+    pal[q] = al;
+  }
+  for (int q = 0; q < P; q++) {
+    const int bt = p.bot_type[q];
+    if (bt == 0 || !pal[q]) continue;
+    const V2 c0 = cen[q];
+    // nearest pellet
+    float bd = 3.4e38f;
+    int bj = -1;
+    bool any_pellet = false;
+    for (int j = 0; j < p.Np; j++) {
+      const int key = AT(s.pkey, j);
+      if (key < 0) continue;
+      any_pellet = true;
+      const float d = sqrtf(norm2(c0.x - pellet_x(p, key),
+                                  c0.y - pellet_y(p, key)));
+      if (d > 0.01f && d < bd) { bd = d; bj = j; }
+    }
+    V2 tg;
+    if (bj >= 0) {
+      const int key = AT(s.pkey, bj);
+      tg = {pellet_x(p, key), pellet_y(p, key)};
+    } else if (any_pellet) {
+      tg = {0.0f, 0.0f};
+    } else {
+      const uint32_t tk = uint32_t(e.ticks);
+      tg = {floorf(p.W * uniformf(e.seed, STREAM_BOT, tk, q, 0)),
+            floorf(p.H * uniformf(e.seed, STREAM_BOT, tk, q, 1))};
+    }
+    // hunt
+    if (bt == 3 || bt == 4) {
+      int big = -1, bi = 0;
+      for (int i = 0; i < Cc; i++) {
+        const int lm = e.c[q].al[i] ? e.c[q].m[i] : -1;
+        if (lm > big) { big = lm; bi = i; }
+      }
+      big = e.c[q].m[bi];
+      const float bigf = float(big);
+      for (int j = 0; j < P; j++) {
+        if (j == q || !pal[j]) continue;
+        const float d = sqrtf(norm2(c0.x - cen[j].x, c0.y - cen[j].y));
+        if (!(d <= AGGRESSIVE_RADIUS)) continue;
+        const Cells& o = e.c[j];
+        float wsum = 0.0f, sx = 0.0f, sy = 0.0f;
+        int edible = 0;
+        for (int i = 0; i < Cc; i++) {
+          const bool can = big > CELL_EAT_REQUIREMENT
+                           && bigf > float(o.m[i]) * 1.1f && o.al[i];
+          const float w = can ? float(o.m[i]) : 0.0f;
+          edible += can ? o.m[i] : 0;
+          wsum = i == 0 ? w : wsum + w;
+          sx = i == 0 ? o.x[i] * w : FMAF(o.x[i], w, sx);
+          sy = i == 0 ? o.y[i] * w : FMAF(o.y[i], w, sy);
+        }
+        if (edible <= 0) continue;
+        const float den = fmaxf(wsum, 1.0f);
+        tg = {FMAF(3.0f, sx / den - c0.x, c0.x),
+              FMAF(3.0f, sy / den - c0.y, c0.y)};
+        break;
+      }
+    }
+    // flee
+    if (bt == 2 || bt == 4) {
+      for (int j = 0; j < P; j++) {
+        if (j == q || !pal[j] || pm[j] <= 0) continue;
+        const float d = sqrtf(norm2(c0.x - cen[j].x, c0.y - cen[j].y));
+        if (d < SHY_RADIUS) {
+          tg = {2.0f * c0.x - cen[j].x, 2.0f * c0.y - cen[j].y};
+          break;
         }
       }
     }
-    if (best < BIG_I) {
-      const int v = best % Nv;
-      AT(s.valive, v) = 0;
-      e.viruses_eaten += 1;
-      e.vticks[floor_mod(e.vptr, p.K)] = e.elapsed;
-      e.vptr += 1;
-      if (n_start >= NUM_CELLS_TO_SPLIT) {
+    e.pl[q].tx = tg.x;
+    e.pl[q].ty = tg.y;
+    e.pl[q].action = 0;
+  }
+}
+
+// ------------------------------------------------------------ cross-eat
+// eating.py::cross_player_eat (SPEC M3): prey j goes to the lowest
+// (pid, rank) eater of another player; the masses and live cells of the
+// phase's start decide every pair, gains are summed in int32
+template <int PC>
+HD void cross_eat(const EnvParams& p, Env<PC>& e) {
+  const int P = players<PC>(p), Cc = p.Cc;
+  int rank[PC][MAX_CELLS], m0[PC][MAX_CELLS];
+  float rad[PC][MAX_CELLS];
+  uint32_t live[PC], eaten[PC];
+  for (int q = 0; q < P; q++) {
+    cell_ranks(e.c[q], Cc, rank[q]);
+    live[q] = 0;
+    eaten[q] = 0;
+    for (int i = 0; i < Cc; i++) {
+      m0[q][i] = e.c[q].m[i];
+      rad[q][i] = radius(float(m0[q][i]));
+      live[q] |= e.c[q].al[i] ? 1u << i : 0u;
+    }
+  }
+  for (int qj = 0; qj < P; qj++) {
+    for (uint32_t mj = live[qj]; mj; mj &= mj - 1) {
+      const int j = lowest_bit(mj);
+      const float xj = e.c[qj].x[j], yj = e.c[qj].y[j];
+      const float lim = float(m0[qj][j]) * 1.1f;
+      // the lowest key: players in pid order, the lowest eligible rank
+      int wq = -1, wr = BIG_I;
+      for (int qi = 0; qi < P && wq < 0; qi++) {
+        if (qi == qj) continue;
+        for (uint32_t mi = live[qi]; mi; mi &= mi - 1) {
+          const int i = lowest_bit(mi);
+          if (rank[qi][i] >= wr) continue;
+          const int mi_ = m0[qi][i];
+          if (!(mi_ > CELL_EAT_REQUIREMENT && float(mi_) > lim)) continue;
+          const float rm = fmaxf(rad[qi][i], rad[qj][j]);
+          if (rm * rm >= norm2(xj - e.c[qi].x[i], yj - e.c[qi].y[i])) {
+            wq = qi;
+            wr = rank[qi][i];
+          }
+        }
+      }
+      if (wq < 0) continue;
+      eaten[qj] |= 1u << j;
+      for (uint32_t mi = live[wq]; mi; mi &= mi - 1) {
+        const int i = lowest_bit(mi);
+        if (rank[wq][i] != wr) continue;
+        const int mi_ = m0[wq][i];
+        if (!(mi_ > CELL_EAT_REQUIREMENT && float(mi_) > lim)) continue;
+        const float rm = fmaxf(rad[wq][i], rad[qj][j]);
+        if (rm * rm >= norm2(xj - e.c[wq].x[i], yj - e.c[wq].y[i])) {
+          e.c[wq].m[i] += m0[qj][j];
+          e.pl[wq].cells_eaten += 1;
+        }
+      }
+    }
+  }
+  for (int q = 0; q < P; q++)
+    for (uint32_t m = eaten[q]; m; m &= m - 1) e.c[q].al[lowest_bit(m)] = false;
+}
+
+// ------------------------------------------------------------ one tick
+// engine/tick.py::engine_tick
+template <int PC>
+HD void engine_tick(const EnvParams& p, const Planes& s, int n, int N,
+                    Env<PC>& e) {
+  const int P = players<PC>(p);
+  const int Cc = p.Cc, Nv = p.Nv, Nf = p.Nf;
+  bool palive[PC];
+  int action_eff[PC];
+
+  // --- 1. bots (start-of-tick snapshot) ----------------------------------
+  if (p.n_bots > 0 && floor_mod(e.ticks, BOT_ACTION_PERIOD) == 0)
+    bot_pass<PC>(p, s, n, N, e);
+
+  // --- 2. elapsed ----------------------------------------------------------
+  for (int q = 0; q < P; q++) {
+    bool al = false;
+    for (int i = 0; i < Cc; i++) al = al || e.c[q].al[i];
+    palive[q] = al;
+    action_eff[q] = al ? e.pl[q].action : 0;
+    e.pl[q].elapsed += al ? 1 : 0;
+  }
+
+  // --- 3. movement + relax ---------------------------------------------
+  int rank[PC][MAX_CELLS], order[PC][MAX_CELLS], n_start[PC];
+  for (int q = 0; q < P; q++) {
+    Cells& c = e.c[q];
+    move_cells(p, c, e.pl[q].tx, e.pl[q].ty);
+    cell_ranks(c, Cc, rank[q]);
+    self_collisions(p, c, rank[q], e.pl[q].tx, e.pl[q].ty);
+    // live cells by rank, cells of one rank (equal ids) in slot order
+    int ns = 0;
+    for (int i = 0; i < Cc; i++) ns += c.al[i] ? 1 : 0;
+    n_start[q] = ns;
+    for (int r = 0, k = 0; r < ns; r++)
+      for (int i = 0; i < Cc; i++)
+        if (c.al[i] && rank[q][i] == r) order[q][k++] = i;
+  }
+
+  // --- 4. virus events (SPEC M2): each player's best (rank, virus) pair
+  // over the viruses alive now; only the lowest pid's claim stands --------
+  Pop pop[PC];
+  int n_disrupt[PC];
+  {
+    int best[PC], bcell[PC];
+    for (int q = 0; q < P; q++) {
+      const Cells& c = e.c[q];
+      best[q] = BIG_I;
+      bcell[q] = 0;
+      for (int i = 0; i < Cc; i++) {
+        if (!c.al[i]) continue;
+        const float rc = radius(float(c.m[i]));
+        for (int v = 0; v < Nv; v++) {
+          if (!AT(s.valive, v)) continue;
+          const int vm = AT(s.vmass, v);
+          const float rm = fmaxf(rc, radius(float(vm)));
+          const bool can = float(c.m[i]) > float(vm) * 1.1f;
+          if (can && rm * rm >= norm2(c.x[i] - AT(s.vx, v),
+                                      c.y[i] - AT(s.vy, v))) {
+            const int key = rank[q][i] * Nv + v;
+            if (key < best[q]) { best[q] = key; bcell[q] = i; }
+          }
+        }
+      }
+    }
+    uint64_t claimed = 0;
+    for (int q = 0; q < P; q++) {
+      n_disrupt[q] = 0;
+      if (best[q] == BIG_I) continue;
+      const int v = best[q] % Nv;
+      if ((claimed >> v) & 1ull) continue;          // a lower pid's virus
+      claimed |= 1ull << v;
+      Cells& c = e.c[q];
+      Player& u = e.pl[q];
+      const int bc = bcell[q];
+      u.viruses_eaten += 1;
+      u.vticks[floor_mod(u.vptr, p.K)] = u.elapsed;
+      u.vptr += 1;
+      if (n_start[q] >= NUM_CELLS_TO_SPLIT) {
         c.m[bc] += AT(s.vmass, v);
       } else {
         // disrupt (actions.py::disrupt_candidates, SPEC Q3)
@@ -422,203 +691,230 @@ HD void engine_tick(const EnvParams& p, const Planes& s, int n, int N,
         cur = cur + floor_mod(total - cur, CELL_POP_SIZE);
         const int pop_mass = total - cur;
         int num_new = (pop_mass + CELL_POP_SIZE - 1) / CELL_POP_SIZE;
-        int lim = PLAYER_CELL_LIMIT - n_start;
+        int lim = PLAYER_CELL_LIMIT - n_start[q];
         lim = lim > 0 ? lim : 0;
         num_new = num_new < lim ? num_new : lim;
         c.m[bc] = cur;
-        c.rec[bc] = e.elapsed + RECOMBINE_TICKS;
-        const float theta = direction(c.vx[bc], c.vy[bc]);
-        const float nn = float(num_new > 1 ? num_new : 1);
-        const float pop_speed = max_speed(float(CELL_POP_SIZE));
-        for (int k = 0; k < num_new; k++) {
-          const float ang = theta + (theta + TWO_PI32 * float(k) / nn);
-          int mk = pop_mass - CELL_POP_SIZE * k;
-          mk = mk < CELL_POP_SIZE ? mk : CELL_POP_SIZE;
-          cand_pop[k] = {AT(s.vx, v), AT(s.vy, v), c.vx[bc], c.vy[bc],
-                         float(cos(double(ang))) * pop_speed,
-                         float(sin(double(ang))) * pop_speed,
-                         mk > 1 ? mk : 1, e.elapsed + RECOMBINE_TICKS};
-        }
-        n_disrupt = num_new;
+        c.rec[bc] = u.elapsed + RECOMBINE_TICKS;
+        pop[q] = {AT(s.vx, v), AT(s.vy, v), c.vx[bc], c.vy[bc], pop_mass,
+                  num_new};
+        n_disrupt[q] = num_new;
       }
+    }
+    for (uint64_t m = claimed; m; m &= m - 1) {
+#ifdef __CUDA_ARCH__
+      AT(s.valive, __ffsll((long long)m) - 1) = 0;
+#else
+      AT(s.valive, __builtin_ctzll(m)) = 0;
+#endif
     }
   }
 
-  // --- 5. pellets (SPEC M1): the lowest-rank eater wins; cells that share
-  // that rank all eat it (eating.py::_resolve) ------------------------------
+  // --- 5. pellets (SPEC M1): the first eater in (pid, rank) order wins,
+  // with the cells of its player that share its rank ----------------------
   {
-    float r2[MAX_CELLS];
-    int eaten[MAX_CELLS];
-    for (int i = 0; i < Cc; i++) {
-      const float r = radius(float(c.m[i]));
-      r2[i] = r * r;
-      eaten[i] = 0;
-    }
+    float r2[PC][MAX_CELLS];
+    for (int q = 0; q < P; q++)
+      for (int i = 0; i < Cc; i++) {
+        const float r = radius(float(e.c[q].m[i]));
+        r2[q][i] = r * r;
+      }
     for (int j = 0; j < p.Np; j++) {
       const int key = AT(s.pkey, j);
       if (key < 0) continue;
       const float px = pellet_x(p, key), py = pellet_y(p, key);
-      for (int r = 0, won = -1; r < n_start; r++) {
-        const int i = order[r];
-        if (won >= 0 && rank[i] != won) break;
-        if (r2[i] >= norm2(c.x[i] - px, c.y[i] - py)) {
-          eaten[i] += 1;
-          AT(s.pkey, j) = -1;
-          won = rank[i];
+      int won = -1;
+      for (int q = 0; q < P && won < 0; q++) {
+        Cells& c = e.c[q];
+        for (int r = 0; r < n_start[q]; r++) {
+          const int i = order[q][r];
+          if (won >= 0 && rank[q][i] != won) break;
+          if (r2[q][i] >= norm2(c.x[i] - px, c.y[i] - py)) {
+            c.m[i] += PELLET_MASS;
+            e.pl[q].food_eaten += 1;
+            AT(s.pkey, j) = -1;
+            won = rank[q][i];
+          }
         }
       }
     }
-    int pm = 0;
-    for (int i = 0; i < Cc; i++) {
-      c.m[i] += eaten[i] * PELLET_MASS;
-      e.food_eaten += eaten[i];
-      pm += c.al[i] ? c.m[i] : 0;
+    for (int q = 0; q < P; q++) {
+      int pm = 0;
+      for (int i = 0; i < Cc; i++) pm += e.c[q].al[i] ? e.c[q].m[i] : 0;
+      e.pl[q].highest = pm > e.pl[q].highest ? pm : e.pl[q].highest;
     }
-    e.highest = pm > e.highest ? pm : e.highest;
   }
 
   // --- 6. auto-split + food eating ------------------------------------------
-  NewCell cand_auto[MAX_CELLS];
-  int n_auto = 0;
-  for (int r = 0; r < n_start; r++) {
-    const int i = order[r];
-    if (c.m[i] < MAX_MASS_IN_THE_GAME) continue;
-    if (n_start < PLAYER_CELL_LIMIT) {
-      int rem;
-      cand_auto[n_auto++] = split_fields(p, c.x[i], c.y[i], c.m[i], e.tx,
-                                         e.ty, e.elapsed, &rem);
-      c.m[i] = rem;
-      c.rec[i] = e.elapsed + RECOMBINE_TICKS;
-    } else {
-      c.m[i] = NEW_MASS_IF_NO_SPLIT;
+  // cand[q] holds player q's auto-split cells, then its split cells: at
+  // most MAX_CELLS together (a split needs a free place under the limit)
+  NewCell cand[PC][MAX_CELLS];
+  int n_auto[PC], n_split[PC];
+  for (int q = 0; q < P; q++) {
+    Cells& c = e.c[q];
+    const Player& u = e.pl[q];
+    n_auto[q] = 0;
+    for (int r = 0; r < n_start[q]; r++) {
+      const int i = order[q][r];
+      if (c.m[i] < MAX_MASS_IN_THE_GAME) continue;
+      if (n_start[q] < PLAYER_CELL_LIMIT) {
+        int rem;
+        cand[q][n_auto[q]++] = split_fields(p, c.x[i], c.y[i], c.m[i], u.tx,
+                                            u.ty, u.elapsed, &rem);
+        c.m[i] = rem;
+        c.rec[i] = u.elapsed + RECOMBINE_TICKS;
+      } else {
+        c.m[i] = NEW_MASS_IF_NO_SPLIT;
+      }
     }
   }
   {
     const float rf = radius(float(FOOD_MASS));
-    float rm2[MAX_CELLS];
-    int eaten[MAX_CELLS];
-    for (int i = 0; i < Cc; i++) {
-      const float rm = fmaxf(radius(float(c.m[i])), rf);
-      rm2[i] = rm * rm;
-      eaten[i] = 0;
-    }
+    float rm2[PC][MAX_CELLS];
+    for (int q = 0; q < P; q++)
+      for (int i = 0; i < Cc; i++) {
+        const float rm = fmaxf(radius(float(e.c[q].m[i])), rf);
+        rm2[q][i] = e.c[q].m[i] > 11 ? rm * rm : -1.0f;
+      }
     for (int f = 0; f < Nf; f++) {
       if (!AT(s.falive, f)) continue;
       const float fx = AT(s.fx, f), fy = AT(s.fy, f);
-      for (int r = 0, won = -1; r < n_start; r++) {
-        const int i = order[r];
-        if (won >= 0 && rank[i] != won) break;
-        if (c.m[i] > 11 && rm2[i] >= norm2(c.x[i] - fx, c.y[i] - fy)) {
-          eaten[i] += 1;
-          AT(s.falive, f) = 0;
-          won = rank[i];
+      int won = -1;
+      for (int q = 0; q < P && won < 0; q++) {
+        Cells& c = e.c[q];
+        for (int r = 0; r < n_start[q]; r++) {
+          const int i = order[q][r];
+          if (won >= 0 && rank[q][i] != won) break;
+          if (rm2[q][i] >= norm2(c.x[i] - fx, c.y[i] - fy)) {
+            c.m[i] += FOOD_MASS;
+            e.pl[q].food_eaten += 1;
+            AT(s.falive, f) = 0;
+            won = rank[q][i];
+          }
         }
       }
     }
-    for (int i = 0; i < Cc; i++) {
-      c.m[i] += eaten[i] * FOOD_MASS;
-      e.food_eaten += eaten[i];
-    }
   }
 
-  // --- 7. feed emission ------------------------------------------------------
+  // --- 7. feed emission: the shared ring in (pid, rank) order -------------
   {
-    const int fcd = e.feed_cd - 1 > 0 ? e.feed_cd - 1 : 0;
-    const bool act = action_eff == 1 && fcd == 0;
     int g = 0;
-    if (act) {
-      for (int r = 0; r < n_start; r++) {
-        const int i = order[r];
-        if (c.m[i] < CELL_MIN_SIZE + FOOD_MASS) continue;
-        float dx = e.tx - c.x[i], dy = e.ty - c.y[i];
-        const float nn = fmaxf(sqrtf(norm2(dx, dy)), 1e-12f);
-        dx = dx / nn;
-        dy = dy / nn;
-        const float rad = radius(float(c.m[i]));
-        const int slot = floor_mod(e.fnext + g, Nf);
-        AT(s.fx, slot) = c.x[i] + dx * rad;
-        AT(s.fy, slot) = c.y[i] + dy * rad;
-        AT(s.fvx, slot) = dx * FOOD_SPEED;
-        AT(s.fvy, slot) = dy * FOOD_SPEED;
-        AT(s.falive, slot) = 1;
-        c.m[i] -= FOOD_MASS;
-        g++;
+    for (int q = 0; q < P; q++) {
+      Cells& c = e.c[q];
+      Player& u = e.pl[q];
+      const int fcd = u.feed_cd - 1 > 0 ? u.feed_cd - 1 : 0;
+      const bool act = action_eff[q] == 1 && fcd == 0;
+      if (act) {
+        for (int r = 0; r < n_start[q]; r++) {
+          const int i = order[q][r];
+          if (c.m[i] < CELL_MIN_SIZE + FOOD_MASS) continue;
+          float dx = u.tx - c.x[i], dy = u.ty - c.y[i];
+          const float nn = fmaxf(sqrtf(norm2(dx, dy)), 1e-12f);
+          dx = dx / nn;
+          dy = dy / nn;
+          const float rad = radius(float(c.m[i]));
+          const int slot = floor_mod(e.fnext + g, Nf);
+          AT(s.fx, slot) = c.x[i] + dx * rad;
+          AT(s.fy, slot) = c.y[i] + dy * rad;
+          AT(s.fvx, slot) = dx * FOOD_SPEED;
+          AT(s.fvy, slot) = dy * FOOD_SPEED;
+          AT(s.falive, slot) = 1;
+          c.m[i] -= FOOD_MASS;
+          g++;
+        }
       }
+      if (palive[q]) u.feed_cd = act ? FEED_COOLDOWN : fcd;
     }
     e.fnext += g;
-    if (palive) e.feed_cd = act ? FEED_COOLDOWN : fcd;
   }
 
   // --- 8. split --------------------------------------------------------------
-  NewCell cand_split[MAX_CELLS];
-  int n_split = 0;
-  {
-    const int scd = e.split_cd - 1 > 0 ? e.split_cd - 1 : 0;
-    const bool act = action_eff == 2 && scd == 0;
-    int limit = PLAYER_CELL_LIMIT - n_start - n_disrupt - n_auto;
+  for (int q = 0; q < P; q++) {
+    Cells& c = e.c[q];
+    Player& u = e.pl[q];
+    n_split[q] = 0;
+    const int scd = u.split_cd - 1 > 0 ? u.split_cd - 1 : 0;
+    const bool act = action_eff[q] == 2 && scd == 0;
+    int limit = PLAYER_CELL_LIMIT - n_start[q] - n_disrupt[q] - n_auto[q];
     limit = limit > 0 ? limit : 0;
     if (act) {
-      for (int r = 0; r < n_start && n_split < limit; r++) {
-        const int i = order[r];
+      for (int r = 0; r < n_start[q] && n_split[q] < limit; r++) {
+        const int i = order[q][r];
         if (c.m[i] < CELL_SPLIT_MINIMUM) continue;
         int rem;
-        cand_split[n_split++] = split_fields(p, c.x[i], c.y[i], c.m[i],
-                                             e.tx, e.ty, e.elapsed, &rem);
+        cand[q][n_auto[q] + n_split[q]++] = split_fields(
+            p, c.x[i], c.y[i], c.m[i], u.tx, u.ty, u.elapsed, &rem);
         c.m[i] = rem;
-        c.rec[i] = e.elapsed + RECOMBINE_TICKS;
+        c.rec[i] = u.elapsed + RECOMBINE_TICKS;
       }
     }
-    if (palive) e.split_cd = act ? SPLIT_COOLDOWN : scd;
+    if (palive[q]) u.split_cd = act ? SPLIT_COOLDOWN : scd;
   }
 
-  // --- 9. place created cells (pop, auto-split, split order) ----------------
-  place_new_cells(p, e, cand_pop, n_disrupt);
-  place_new_cells(p, e, cand_auto, n_auto);
-  place_new_cells(p, e, cand_split, n_split);
+  // --- 9. place created cells: pops, auto-splits, splits, each kind for
+  // all players in pid order (the id order) --------------------------------
+  for (int q = 0; q < P; q++)
+    place_new_cells(p, e.c[q], e.next_id, nullptr, &pop[q], e.pl[q].elapsed,
+                    n_disrupt[q]);
+  for (int q = 0; q < P; q++)
+    place_new_cells(p, e.c[q], e.next_id, cand[q], nullptr, 0, n_auto[q]);
+  for (int q = 0; q < P; q++)
+    place_new_cells(p, e.c[q], e.next_id, cand[q] + n_auto[q], nullptr, 0,
+                    n_split[q]);
 
   // --- 10. recombine (SPEC M7) ---------------------------------------------
-  for (int it = 0; it < Cc; it++) {
-    int rk[MAX_CELLS];
-    float rr[MAX_CELLS];
-    cell_ranks(c, Cc, rk);
-    for (int i = 0; i < Cc; i++) rr[i] = radius(float(c.m[i]));
-    int best = BIG_I, bi = -1, bj = -1;
-    for (int i = 0; i < Cc; i++) {
-      if (!c.al[i] || e.elapsed < c.rec[i]) continue;
-      for (int j = 0; j < Cc; j++) {
-        if (j == i || !c.al[j] || e.elapsed < c.rec[j]) continue;
-        if (rk[i] >= rk[j]) continue;
-        const float rse = (rr[i] + rr[j]) + RECOMBINE_TOUCH_EPS;
-        if (rse * rse >= norm2(c.x[j] - c.x[i], c.y[j] - c.y[i])) {
-          const int key = rk[i] * Cc + rk[j];
-          if (key < best) { best = key; bi = i; bj = j; }
+  for (int q = 0; q < P; q++) {
+    Cells& c = e.c[q];
+    const int el = e.pl[q].elapsed;
+    for (int it = 0; it < Cc; it++) {
+      int rk[MAX_CELLS];
+      float rr[MAX_CELLS];
+      cell_ranks(c, Cc, rk);
+      for (int i = 0; i < Cc; i++) rr[i] = radius(float(c.m[i]));
+      int best = BIG_I, bi = -1, bj = -1;
+      for (int i = 0; i < Cc; i++) {
+        if (!c.al[i] || el < c.rec[i]) continue;
+        for (int j = 0; j < Cc; j++) {
+          if (j == i || !c.al[j] || el < c.rec[j]) continue;
+          if (rk[i] >= rk[j]) continue;
+          const float rse = (rr[i] + rr[j]) + RECOMBINE_TOUCH_EPS;
+          if (rse * rse >= norm2(c.x[j] - c.x[i], c.y[j] - c.y[i])) {
+            const int key = rk[i] * Cc + rk[j];
+            if (key < best) { best = key; bi = i; bj = j; }
+          }
         }
       }
+      if (bi < 0) break;
+      c.m[bi] += c.m[bj];
+      c.al[bj] = false;
     }
-    if (bi < 0) break;
-    c.m[bi] += c.m[bj];
-    c.al[bj] = false;
   }
 
   // --- 11. anti-team + decay ------------------------------------------------
-  if (p.mass_decay && palive && e.elapsed % 60 == 0) {
-    const int fall_off = e.elapsed - ANTI_TEAM_TICKS;
+  for (int q = 0; q < P; q++) {
+    Cells& c = e.c[q];
+    Player& u = e.pl[q];
+    if (!(p.mass_decay && palive[q] && u.elapsed % 60 == 0)) continue;
+    const int fall_off = u.elapsed - ANTI_TEAM_TICKS;
     int cnt = 0;
     for (int k = 0; k < p.K; k++) {
-      if (e.vticks[k] < fall_off) e.vticks[k] = EMPTY_TICK;
-      cnt += e.vticks[k] != EMPTY_TICK;
+      if (u.vticks[k] < fall_off) u.vticks[k] = EMPTY_TICK;
+      cnt += u.vticks[k] != EMPTY_TICK;
     }
-    if (cnt > 0) e.anti_team = powd(1.1f, float(cnt - 1));
-    if (e.elapsed - e.last_decay >= DECAY_TICKS) {
-      const float f = 1.0f - PLAYER_DECAY_RATE * e.anti_team;
+    if (cnt > 0) u.anti_team = powd(1.1f, float(cnt - 1));
+    if (u.elapsed - u.last_decay >= DECAY_TICKS) {
+      const float f = 1.0f - PLAYER_DECAY_RATE * u.anti_team;
       for (int i = 0; i < Cc; i++) {
         if (!c.al[i]) continue;
         const int d = int(float(c.m[i]) * f);
         c.m[i] = d > CELL_MIN_SIZE ? d : CELL_MIN_SIZE;
       }
-      e.last_decay = e.elapsed;
+      u.last_decay = u.elapsed;
     }
   }
+
+  // --- 12. cross-player eating ---------------------------------------------
+  if (PC > 1 && P > 1) cross_eat<PC>(p, e);
 
   // --- 13. foods move + virus feeding (SPEC M4) -----------------------------
   {
@@ -717,60 +1013,81 @@ HD void engine_tick(const EnvParams& p, const Planes& s, int n, int N,
   }
 
   // --- 15. assemble: dead cells keep stale pos/vel, lose mass and split vel
-  for (int i = 0; i < Cc; i++) {
-    if (c.al[i]) continue;
-    c.sx[i] = 0.0f; c.sy[i] = 0.0f; c.m[i] = 0;
+  for (int q = 0; q < P; q++) {
+    Cells& c = e.c[q];
+    for (int i = 0; i < Cc; i++) {
+      if (c.al[i]) continue;
+      c.sx[i] = 0.0f; c.sy[i] = 0.0f; c.m[i] = 0;
+    }
   }
   e.ticks += 1;
 }
 
-// apply_actions (env.py) for agent 0: target = centroid + 10*(dx, dy)
-HD void apply_actions(const EnvParams& p, Env& e, float ax, float ay,
-                      int act) {
-  const Cells& c = e.c;
-  float tot = 0.0f, sx = 0.0f, sy = 0.0f;
+// apply_actions (env.py) for agent a: target = fma(10, (dx, dy), centroid)
+HD void apply_actions(const EnvParams& p, const Cells& c, Player& u,
+                      float ax, float ay, int act) {
   bool al = false;
-  for (int i = 0; i < p.Cc; i++) {
-    const float w = c.al[i] ? float(c.m[i]) : 0.0f;
-    tot = tot + w;
-    sx = sx + c.x[i] * w;
-    sy = sy + c.y[i] * w;
-    al = al || c.al[i];
-  }
+  for (int i = 0; i < p.Cc; i++) al = al || c.al[i];
   if (!al) return;
-  const float den = fmaxf(tot, 1.0f);
-  e.tx = sx / den + TARGET_ACTION_SCALE * ax;
-  e.ty = sy / den + TARGET_ACTION_SCALE * ay;
-  e.action = act;
+  const V2 cen = xla_centroid(c, p.Cc);
+  u.tx = FMAF(TARGET_ACTION_SCALE, ax, cen.x);
+  u.ty = FMAF(TARGET_ACTION_SCALE, ay, cen.y);
+  u.action = act;
 }
 
-// the whole launch for env n: n_steps x (actions, ticks, frame, info row)
+// the whole launch for env n: n_steps x (actions, ticks, frames, info rows)
+template <int PC>
+HD void multi_step_env_t(const EnvParams& p, const Planes& s, int n, int N,
+                         const float* ax, const float* ay, const int* aact,
+                         float* obs, float* info, int n_steps) {
+  const int P = players<PC>(p);
+  Env<PC> e;
+  load_env<PC>(p, s, n, N, e);
+  for (int step = 0; step < n_steps; step++) {
+    for (int a = 0; a < p.A; a++)
+      apply_actions(p, e.c[a], e.pl[a], ax[a * N + n], ay[a * N + n],
+                    aact[a * N + n]);
+    for (int t = 0; t < p.ticks_per_step; t++)
+      engine_tick<PC>(p, s, n, N, e);
+    store_cells<PC>(p, s, n, N, e);
+    const long long row = (long long)step * N + n;
+    if (obs != nullptr)
+      for (int a = 0; a < p.A; a++)
+        ram_frame_env(p, s, n, N, a, obs + (row * p.A + a) * p.R);
+    for (int q = 0; q < P; q++) {
+      int pm = 0;
+      bool al = false;
+      for (int i = 0; i < p.Cc; i++) {
+        pm += e.c[q].al[i] ? e.c[q].m[i] : 0;
+        al = al || e.c[q].al[i];
+      }
+      info[row * 2 * P + q] = float(pm);
+      info[(row * 2 + 1) * P + q] = al ? 1.0f : 0.0f;
+    }
+  }
+  store_player<PC>(p, s, n, N, e);
+}
+
+// the player capacity of a roster of P players
+HD int player_capacity(int P) { return P == 1 ? 1 : P == 2 ? 2 : 9; }
+
 HD void multi_step_env(const EnvParams& p, const Planes& s, int n, int N,
                        const float* ax, const float* ay, const int* aact,
                        float* obs, float* info, int n_steps) {
-  Env e;
-  load_env(p, s, n, N, e);
-  for (int step = 0; step < n_steps; step++) {
-    apply_actions(p, e, ax[n], ay[n], aact[n]);
-    for (int t = 0; t < p.ticks_per_step; t++) engine_tick(p, s, n, N, e);
-    store_cells(p, s, n, N, e);
-    const long long row = (long long)step * N + n;
-    if (obs != nullptr) ram_frame_env(p, s, n, N, 0, obs + row * p.R);
-    int pm = 0;
-    bool al = false;
-    for (int i = 0; i < p.Cc; i++) {
-      pm += e.c.al[i] ? e.c.m[i] : 0;
-      al = al || e.c.al[i];
-    }
-    info[row * 2] = float(pm);
-    info[row * 2 + 1] = al ? 1.0f : 0.0f;
+  switch (player_capacity(p.P)) {
+    case 1: multi_step_env_t<1>(p, s, n, N, ax, ay, aact, obs, info, n_steps);
+            break;
+    case 2: multi_step_env_t<2>(p, s, n, N, ax, ay, aact, obs, info, n_steps);
+            break;
+    default: multi_step_env_t<9>(p, s, n, N, ax, ay, aact, obs, info,
+                                 n_steps);
   }
-  store_player(p, s, n, N, e);
 }
 
 #undef AT
 
 #ifdef __CUDACC__
+template <int PC>
 __global__ void __launch_bounds__(128)
 multi_step_kernel(const EnvParams p, const Planes s,
                   const float* __restrict__ ax, const float* __restrict__ ay,
@@ -778,7 +1095,7 @@ multi_step_kernel(const EnvParams p, const Planes s,
                   float* __restrict__ info, int N, int n_steps) {
   const int n = blockIdx.x * blockDim.x + threadIdx.x;
   if (n >= N) return;
-  multi_step_env(p, s, n, N, ax, ay, aact, obs, info, n_steps);
+  multi_step_env_t<PC>(p, s, n, N, ax, ay, aact, obs, info, n_steps);
 }
 #endif
 
@@ -790,11 +1107,23 @@ extern "C" int agarcl_multi_step(const agarcl::EnvParams* prm,
                                  const float* ay, const int* aact,
                                  float* obs, float* info, int N, int n_steps,
                                  cudaStream_t stream) {
+  if (prm->P < 1 || prm->P > 9) return int(cudaErrorInvalidValue);
   const agarcl::Planes s = agarcl::planes_from(planes);
   const int threads = 128;
   const int blocks = (N + threads - 1) / threads;
-  agarcl::multi_step_kernel<<<blocks, threads, 0, stream>>>(
-      *prm, s, ax, ay, aact, obs, info, N, n_steps);
+  switch (agarcl::player_capacity(prm->P)) {
+    case 1:
+      agarcl::multi_step_kernel<1><<<blocks, threads, 0, stream>>>(
+          *prm, s, ax, ay, aact, obs, info, N, n_steps);
+      break;
+    case 2:
+      agarcl::multi_step_kernel<2><<<blocks, threads, 0, stream>>>(
+          *prm, s, ax, ay, aact, obs, info, N, n_steps);
+      break;
+    default:
+      agarcl::multi_step_kernel<9><<<blocks, threads, 0, stream>>>(
+          *prm, s, ax, ay, aact, obs, info, N, n_steps);
+  }
   return int(cudaGetLastError());
 }
 #endif

@@ -2,7 +2,8 @@
 engine/eating.py).
 
 Contested prey always goes to the lowest (pid, cell-rank) eligible eater
-(SPEC M1-M5). Batched over N envs; shapes (N, P, Cc) for cells.
+(SPEC M1-M5), including cells of other players (cross_player_eat). Batched
+over N envs; shapes (N, P, Cc) for cells.
 """
 
 from __future__ import annotations
@@ -107,6 +108,47 @@ def virus_events(cell_pos, cell_mass, cell_alive, rank, virus_pos,
                 mass_gain=gain.to(torch.int32),
                 disrupt=won & ~can_eat_virus,
                 virus_alive=virus_alive & ~virus_removed)
+
+
+def cross_player_eat(cell_pos, cell_mass, cell_alive, rank):
+    """players_collision (Engine.hpp:150-200) under SPEC M3.
+
+    Cell i eats cell j of another player when both are alive, j's centre
+    lies within the larger radius, mass_i > CELL_EAT_REQUIREMENT and
+    f32(mass_i) > f32(mass_j) * 1.1. Contested prey goes to the lowest
+    (pid, rank) eater; gains are the snapshot masses, summed in int32; an
+    eaten cell still eats this tick (chains).
+
+    Returns (gain_per_cell (N,P,Cc) i32, eaten (N,P,Cc) bool,
+    eaten_count_per_player (N,P) i32, the cells_eaten credit)."""
+    N, P, Cc = cell_mass.shape
+    M = P * Cc
+    pos = cell_pos.reshape(N, M, 2)
+    mass = cell_mass.reshape(N, M)
+    alive = cell_alive.reshape(N, M)
+    key = order_key(rank).reshape(N, M)
+    pid = torch.arange(M, device=cell_mass.device) // Cc
+
+    rad = G.radius(mass)
+    d = pos[:, None, :, :] - pos[:, :, None, :]                 # [i, j]
+    dist2 = G.norm2(d[..., 0], d[..., 1])
+    rm = torch.maximum(rad[:, :, None], rad[:, None, :])
+    margin = float(torch.tensor(C.CELL_EAT_MARGIN, dtype=torch.float32))
+    can_eat = ((mass[:, :, None] > C.CELL_EAT_REQUIREMENT)
+               & (mass[:, :, None].to(torch.float32)
+                  > mass[:, None, :].to(torch.float32) * margin))
+    eligible = (alive[:, :, None] & alive[:, None, :]
+                & (pid[:, None] != pid[None, :])
+                & can_eat & (rm * rm >= dist2))
+    big = torch.full((), _BIG_I, dtype=torch.int32, device=mass.device)
+    eat_key = torch.where(eligible, key[:, :, None], big)       # [i, j]
+    min_key = eat_key.min(1).values                             # per prey j
+    eaten = min_key < _BIG_I
+    winner = eligible & (eat_key == min_key[:, None, :])
+    gain = torch.where(winner, mass[:, None, :], 0).sum(-1, dtype=torch.int32)
+    count = winner.sum(-1, dtype=torch.int32)
+    return (gain.reshape(N, P, Cc), eaten.reshape(N, P, Cc),
+            count.reshape(N, P, Cc).sum(-1, dtype=torch.int32))
 
 
 def move_foods_and_feed_viruses(food_pos, food_vel, food_alive, virus_pos,

@@ -3,6 +3,7 @@
 Phase order follows Engine::tick + tick_player (Engine.hpp:208-240,
 495-542) under the simultaneous, order-pinned schedule of SPEC.md:
 
+  1  bot decisions (every BOT_ACTION_PERIOD ticks, start-of-tick snapshot)
   2  elapsed_ticks++ for live players
   3  movement + same-player collision relaxation
   4  virus events (eat / pop)
@@ -17,10 +18,9 @@ Phase order follows Engine::tick + tick_player (Engine.hpp:208-240,
   14 pellet/virus regeneration
   15 ticks++
 
-This slice of the port covers the single-player modes without bots
-(modes 1-6): phase 1 (bot decisions, engine/bots.py) and phase 12
-(cross-player eating) are not ported yet, and configurations that need
-them raise NotImplementedError.
+Rosters of up to MAX_ROSTER players (agents plus scripted bots) tick,
+the cap of the JAX package's fused path (agarcl_tpu/ops/fused_tick.py::
+supports); larger ones raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -31,19 +31,23 @@ import torch
 from agarcl_tpu_torch import constants as C
 from agarcl_tpu_torch.config import EnvConfig
 from agarcl_tpu_torch.engine import actions as A
+from agarcl_tpu_torch.engine import bots as B
 from agarcl_tpu_torch.engine import eating as E
 from agarcl_tpu_torch.engine import physics as PH
 from agarcl_tpu_torch.engine import spawn as S
-from agarcl_tpu_torch.state import GameState
+from agarcl_tpu_torch.state import GameState, cell_rank_of
+
+
+MAX_ROSTER = 9     # players; the JAX package's fused-path cap
 
 
 def check_supported(cfg: EnvConfig) -> None:
-    """Raise for configurations this slice of the port cannot tick."""
-    if cfg.total_bots or cfg.num_players > 1:
+    """Raise for rosters above MAX_ROSTER players (agents plus bots)."""
+    if cfg.num_players > MAX_ROSTER:
         raise NotImplementedError(
-            "the torch engine ticks single-player configurations without "
-            "bots (modes 1-6, one agent); bots and cross-player eating are "
-            "not ported yet")
+            f"the port ticks rosters of up to {MAX_ROSTER} players "
+            f"(agents plus bots); this configuration has "
+            f"{cfg.num_players}")
 
 
 def engine_tick(cfg: EnvConfig, state: GameState) -> GameState:
@@ -53,7 +57,20 @@ def engine_tick(cfg: EnvConfig, state: GameState) -> GameState:
     dev = state.device
     palive = state.player_alive()
     pellet_pos, pellet_alive = state.pellet_xy_alive(cfg)
+    P = state.cell_mass.shape[1]
+
+    # --- 1. bots -----------------------------------------------------------
     target, action = state.target, state.action
+    bot_types = cfg.bot_types()
+    if any(bt > 0 for bt in bot_types):
+        btgt, bact, bupd = B.bot_decide(
+            bot_types, state.player_centroid(), state.player_mass(), palive,
+            state.cell_pos, state.cell_mass, state.cell_alive, pellet_pos,
+            pellet_alive, W, H, state.seed, state.ticks)
+        do = (torch.remainder(state.ticks, C.BOT_ACTION_PERIOD)
+              == 0)[:, None] & bupd
+        target = torch.where(do[..., None], btgt, target)
+        action = torch.where(do, bact, action)
     action_eff = torch.where(palive, action, 0)
 
     # --- 2. elapsed --------------------------------------------------------
@@ -143,6 +160,16 @@ def engine_tick(cfg: EnvConfig, state: GameState) -> GameState:
         cells, last_decay, anti_team, virus_ticks = A.decay_and_anti_team(
             cells, elapsed, last_decay, anti_team, virus_ticks, palive)
 
+    # --- 12. cross-player eating ------------------------------------------
+    cells_eaten = state.cells_eaten
+    if P > 1:
+        rank2 = cell_rank_of(cells["id"], cells["alive"])
+        gain, eaten, cnt = E.cross_player_eat(cells["pos"], cells["mass"],
+                                              cells["alive"], rank2)
+        cells["mass"] = cells["mass"] + gain
+        cells["alive"] = cells["alive"] & ~eaten
+        cells_eaten = cells_eaten + cnt
+
     # --- 13. foods move + virus feeding -----------------------------------
     any_dead_v = (~virus_alive).any(-1)
     dead_slot = torch.where(any_dead_v,
@@ -167,7 +194,7 @@ def engine_tick(cfg: EnvConfig, state: GameState) -> GameState:
         elapsed_ticks=elapsed, last_decay_tick=last_decay,
         anti_team_decay=anti_team, virus_eaten_ticks=virus_ticks,
         virus_eaten_ptr=virus_ptr, food_eaten=food_eaten,
-        highest_mass=highest_mass, cells_eaten=state.cells_eaten,
+        highest_mass=highest_mass, cells_eaten=cells_eaten,
         viruses_eaten=viruses_eaten,
         cell_pos=cells["pos"], cell_vel=cells["vel"],
         cell_split_vel=torch.where(keepc[..., None], cells["split_vel"], 0.0),

@@ -15,6 +15,7 @@ import torch
 from agarcl_tpu_torch import constants as C
 from agarcl_tpu_torch import prng
 from agarcl_tpu_torch.config import EnvConfig
+from agarcl_tpu_torch.engine import geometry as G
 from agarcl_tpu_torch.engine import spawn as S
 from agarcl_tpu_torch.engine.tick import engine_tick
 from agarcl_tpu_torch.state import GameState, zero_state
@@ -61,7 +62,9 @@ def reset_seeds(num_envs: int, seed: int, device=None) -> torch.Tensor:
 
 def apply_actions(cfg: EnvConfig, state: GameState, actions) -> GameState:
     """take_actions (BaseEnvironment.hpp:141-176): each live agent gets
-    target = centroid + 10*(dx, dy) and action = act.
+    target = centroid + 10*(dx, dy) and action = act; the centroid and the
+    fused multiply-add are XLA-CPU's forms, so targets equal the jitted JAX
+    package's bit for bit.
 
     actions: (N, A, 3) f32 columns (dx, dy, act in {0,1,2})."""
     A = cfg.num_agents
@@ -70,7 +73,7 @@ def apply_actions(cfg: EnvConfig, state: GameState, actions) -> GameState:
                               device=state.device).reshape(N, A, 3)
     centroid = state.player_centroid()[:, :A]
     alive = state.player_alive()[:, :A]
-    tgt = centroid + C.TARGET_ACTION_SCALE * actions[..., :2]
+    tgt = G.fma32(C.TARGET_ACTION_SCALE, actions[..., :2], centroid)
     act = actions[..., 2].to(torch.int32)
     target = state.target.clone()
     target[:, :A] = torch.where(alive[..., None], tgt, state.target[:, :A])

@@ -21,6 +21,7 @@ from agarcl_tpu_torch import constants as C
 from agarcl_tpu_torch.config import EnvConfig
 from agarcl_tpu_torch.env import finish_step, reset_done
 from agarcl_tpu_torch.obs.grid import GridObsConfig
+from agarcl_tpu_torch.obs.ram import RamObsConfig
 from agarcl_tpu_torch.obs.screen import ScreenObsConfig
 from agarcl_tpu_torch.ops import fused_grid as FG
 from agarcl_tpu_torch.ops import fused_screen as FS
@@ -143,20 +144,25 @@ def fused_env_step(cfg: EnvConfig, states: GameState, actions, ocfg,
                    num_frames: int = 1, auto_reset: bool = False,
                    respawn_main_during_obs: bool = False):
     """One env step of a batch through the kernel wrappers: apply actions
-    plus ticks_per_step ticks (multi_step_raw with k=1, K1 on CUDA), the
-    frame of the post-step state (a ScreenObsConfig: fused_screen_frame, K3
-    on CUDA; a GridObsConfig: fused_grid_frame, K4 on CUDA), then
-    `_finish_step`.
-    Returns (states, obs (N, 1, 1, ...), rewards (N, A), dones (N, A))."""
+    plus ticks_per_step ticks (multi_step_raw with k=1, K1 on CUDA, which
+    also writes the RAM frames of a RamObsConfig), the frame of the
+    post-step state (a ScreenObsConfig: fused_screen_frame, K3 on CUDA; a
+    GridObsConfig: fused_grid_frame, K4 on CUDA), then `_finish_step`.
+    Returns (states, obs (N, 1, A, ...) or None, rewards (N, A),
+    dones (N, A))."""
     if num_frames != 1:
         raise NotImplementedError(
             "the tick kernel runs whole steps: frames of earlier ticks "
             "(num_frames > 1) are not ported to the kernel path")
     A = cfg.num_agents
     before = states.player_mass()[:, :A].to(torch.float32)
-    planes, _, _ = FT.multi_step_raw(cfg, FT.to_kernel_arrays(states),
-                                     actions, 1, None)
-    obs = frame_kernel(ocfg)[0](cfg, ocfg, planes)[:, None]
+    ram = isinstance(ocfg, RamObsConfig)
+    planes, obs, _ = FT.multi_step_raw(cfg, FT.to_kernel_arrays(states),
+                                       actions, 1, ocfg if ram else None)
+    if ram:
+        obs = obs[0][:, None]
+    elif ocfg is not None:
+        obs = frame_kernel(ocfg)[0](cfg, ocfg, planes)[:, None]
     template = states.replace(main_respawned=torch.zeros_like(
         states.main_respawned))
     states = FT.from_kernel_arrays(template, planes)

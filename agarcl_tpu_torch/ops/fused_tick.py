@@ -3,10 +3,11 @@
 
 Kernel K1 (csrc/tick.cu) replaces the TPU kernel
 agarcl_tpu/ops/fused_tick.py::_make_kernel as launched in n_steps mode by
-_multi_step_raw_core, for one player without bots. For every step it
-applies the agent actions (env.py::apply_actions), runs ticks_per_step
-engine ticks (engine/tick.py), then writes the step's RAM frame and each
-player's (mass, alive) row.
+_multi_step_raw_core, for rosters of up to 9 players (agents plus scripted
+bots, with bot decisions and cross-player eating inside the kernel). For
+every step it applies the agent actions (env.py::apply_actions), runs
+ticks_per_step engine ticks (engine/tick.py), then writes the step's RAM
+frame for every agent and each player's (mass, alive) row.
 
 State layout: the `_SPLIT_PLAN` planes of the JAX package — every field as
 a contiguous (feature, N) tensor with the env axis last, 41 planes. With one
@@ -28,7 +29,7 @@ import ctypes
 import torch
 
 from agarcl_tpu_torch.config import EnvConfig
-from agarcl_tpu_torch.engine.tick import engine_tick
+from agarcl_tpu_torch.engine.tick import MAX_ROSTER, engine_tick
 from agarcl_tpu_torch.env import apply_actions
 from agarcl_tpu_torch.obs.ram import RamObsConfig, ram_frame, ram_size
 from agarcl_tpu_torch.ops import _build
@@ -127,9 +128,10 @@ def from_kernel_arrays(template: GameState, planes) -> GameState:
 
 
 def supports(cfg: EnvConfig) -> bool:
-    """Configurations K1 covers: one player without bots (modes 1-6 with
-    one agent) at the pinned cell and virus-tick capacities."""
-    return (cfg.num_players == 1 and cfg.total_bots == 0
+    """Configurations K1 covers: rosters of up to 9 players (agents plus
+    bots; the JAX package's fused-path cap) at the pinned cell and
+    virus-tick capacities."""
+    return (cfg.num_players <= MAX_ROSTER
             and cfg.max_cells == KP.MAX_CELLS
             and cfg.virus_ticks_capacity == KP.MAX_TICKS_RING
             and cfg.virus_capacity <= KP.MAX_VIRUSES)
@@ -231,8 +233,9 @@ def multi_step_raw(cfg: EnvConfig, planes, actions, k: int,
     in place), the plain version for CPU tensors. Returns (planes,
     obs (k,N,A,R) | None, info (k,N,2,P))."""
     if not supports(cfg):
-        raise NotImplementedError("the multi-step kernel covers one player "
-                                  "without bots")
+        raise NotImplementedError(
+            f"the multi-step kernel covers rosters of up to {MAX_ROSTER} "
+            f"players at the pinned capacities ({cfg.num_players} players)")
     if k < 1:
         raise ValueError("k must be >= 1")
     dev = planes[0].device

@@ -32,7 +32,8 @@ class EnvParams(ctypes.Structure):
         "qlx", "nqx", "qly", "nqy", "kp", "kv", "R", "kbits_p", "kbits_v")] + [
         (name, ctypes.c_float) for name in (
         "W", "H", "dt", "inv_w", "inv_h", "p_invx", "p_invy", "kdec_split",
-        "kdec_food", "spawn_k", "virus_hi_x", "virus_hi_y", "virus_rad")]
+        "kdec_food", "spawn_k", "virus_hi_x", "virus_hi_y", "virus_rad")] + [
+        ("n_bots", ctypes.c_int), ("bot_type", ctypes.c_int * MAX_PLAYERS)]
 
 
 def env_params(cfg: EnvConfig, ocfg: RamObsConfig | None) -> EnvParams:
@@ -43,6 +44,7 @@ def env_params(cfg: EnvConfig, ocfg: RamObsConfig | None) -> EnvParams:
     rad_v = float(np.sqrt(C.VIRUS_INITIAL_MASS / np.pi))
     dt = f32(cfg.dt)
     ms = cfg.mode_spec
+    types = cfg.bot_types()
     return EnvParams(
         P=cfg.num_players, A=cfg.num_agents, Cc=cfg.max_cells,
         Np=cfg.pellet_capacity, Nv=cfg.virus_capacity,
@@ -65,4 +67,6 @@ def env_params(cfg: EnvConfig, ocfg: RamObsConfig | None) -> EnvParams:
         virus_hi_x=f32(cfg.arena_width - 2.0 * rad_v),
         virus_hi_y=f32(cfg.arena_height - 2.0 * rad_v),
         virus_rad=f32(rad_v),
+        n_bots=sum(t > 0 for t in types),
+        bot_type=(ctypes.c_int * MAX_PLAYERS)(*types),
     )

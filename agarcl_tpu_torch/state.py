@@ -154,9 +154,10 @@ class GameState:
         return self.cell_alive.any(-1)
 
     def player_centroid(self) -> torch.Tensor:
-        """(N, P, 2) f32 mass-weighted centroid, summed in slot order;
-        dead players get (0, 0)."""
-        return centroid_of(self.cell_pos, self.cell_mass, self.cell_alive)
+        """(N, P, 2) f32 mass-weighted centroid in XLA-CPU's form
+        (`xla_centroid_of`); dead players get (0, 0)."""
+        return xla_centroid_of(self.cell_pos, self.cell_mass,
+                               self.cell_alive)
 
     def cell_rank(self) -> torch.Tensor:
         """(N, P, Cc) i32 rank of each live cell by id."""
@@ -173,11 +174,35 @@ class GameState:
 
 def centroid_of(pos, mass, alive):
     """(..., Cc, 2), (..., Cc), (..., Cc) -> (..., 2) centroid (slot-order
-    f32 sums; total clamped at 1 so dead players land on (0, 0))."""
+    f32 sums of rounded products; total clamped at 1 so dead players land
+    on (0, 0)): the screen and grid cameras' form, as the Pallas kernels'
+    section emission forms them."""
     w = torch.where(alive, mass, 0).to(torch.float32)
     total = slot_sum(w, -1)
     num = slot_sum(pos * w[..., None], -2)
     return num / torch.clamp(total, min=1.0)[..., None]
+
+
+def weighted_sum(x, w, dim: int = -2):
+    """sum_i x_i * w_i over slots in slot order as XLA-CPU forms a
+    reduction of products: the first product rounded, then one fma per
+    slot (fma32 in geometry.py's sense). x (..., Cc, 2), w (..., Cc)."""
+    x = x.movedim(dim, 0)
+    w = w.movedim(-1, 0)[..., None]
+    acc = x[0] * w[0]
+    for i in range(1, x.shape[0]):
+        acc = (x[i].double() * w[i].double() + acc.double()).to(
+            torch.float32)
+    return acc
+
+
+def xla_centroid_of(pos, mass, alive):
+    """The centroid in XLA-CPU's form (agarcl_tpu/state.py under jit):
+    the mass total in slot order, the numerator as `weighted_sum`; dead
+    players land on (0, 0). Actions, bots and the RAM frame use it."""
+    w = torch.where(alive, mass, 0).to(torch.float32)
+    return weighted_sum(pos, w) / torch.clamp(slot_sum(w, -1),
+                                               min=1.0)[..., None]
 
 
 STATE_FIELDS = tuple(f.name for f in dataclasses.fields(GameState))

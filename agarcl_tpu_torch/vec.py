@@ -7,13 +7,14 @@ for the CPU (backend="torch", device="cpu"); without a CUDA device a card
 run raises.
 
 - backend="cuda" runs the hand-written kernels: K1, the multi-step tick
-  (ops/fused_tick.py), K2, the RAM frame (ops/fused_obs.py), K3, the
+  of rosters up to 9 players with bots (ops/fused_tick.py), K2, the RAM frame (ops/fused_obs.py), K3, the
   screen frame (ops/fused_screen.py), and K4, the grid frame
   (ops/fused_grid.py). RAM and no observations run as one K1 call per
   multi_step on resident (feature, N) planes. Screen and grid observations
   run k x (K1 with k=1, then K3 or K4) on planes converted once per call;
-  with auto_reset, respawn_main_during_obs or mode 0's respawn they go step
-  by step through a GameState (ops/fused_step.py::fused_env_step).
+  with auto_reset, respawn_main_during_obs or mode 0's respawn every
+  observation type goes step by step through a GameState
+  (ops/fused_step.py::fused_env_step; RAM frames from K1 itself).
   Nothing falls back to the CPU or to the plain version.
 - backend="torch" runs the plain engine (engine_tick) and the plain frames
   (obs/ram.py::ram_frame; ops/fused_screen.py::frame_plain;
@@ -75,13 +76,15 @@ class VecEnv:
             if device.type != "cuda":
                 raise ValueError("backend='cuda' runs on a CUDA device")
             frames = obs_type in ("screen", "grid")
-            fits = (FT.supports(cfg) if frames
-                    else fused_step.supports_multi(cfg, obs_type)
-                    and not self._per_step)
+            fits = (FT.supports(cfg) if frames or self._per_step
+                    else fused_step.supports_multi(cfg, obs_type))
             if not fits:
                 raise NotImplementedError(
                     "the cuda backend runs the tick kernel, which this "
                     "configuration does not fit")
+            if frames and cfg.num_agents != 1:
+                raise NotImplementedError(
+                    "the screen and grid kernels draw one agent's view")
             if frames and self.ocfg.num_frames != 1:
                 raise NotImplementedError(
                     "the tick kernel runs whole steps: num_frames > 1 is "

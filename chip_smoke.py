@@ -2,14 +2,15 @@
 
     python3 chip_smoke.py
 
-Drives the port's three main paths (agarcl_tpu_torch) at full size, in
+Drives the port's main paths (agarcl_tpu_torch) at full size, in
 the bench.py game (mode 4, arena 350, 500 pellets, 10 viruses, 4 ticks per
 step, delta-mass reward) at 8192 envs through VecEnv on the card: the RAM
 path (RAM frame every step; reset, make_resident, multi_step(k=40)), the
 screen path (the task suite's 128 x 128 agent-view screen every step;
 reset, multi_step(k=10)) and the grid path (bench.py --obs grid: a 64 x 64
-int16 grid of 8 channels every step; reset, multi_step(k=10)). Phases, one
-line each:
+int16 grid of 8 channels every step; reset, multi_step(k=10)); then the
+task suite's duel (mode 10: one agent against an AggressiveShy bot) on the
+screen path, its RAM path and mode 0 with bots. Phases, one line each:
 
   1. toolchain: GPU name and power limit, torch and CUDA versions, nvcc,
      kernel build time;
@@ -49,7 +50,23 @@ line each:
  12. times: grid-path env-steps/s for both backends, K4 alone per frame
      (CUDA events) against its bound at G=64 int16 and G=128 int32, the
      plain section build, the device's busy share of one profiled call, K1
-     at k=1 per step against its plain version.
+     at k=1 per step against its plain version;
+ 13. K1 with bots and cross-player eating against its plain version: the
+     duel task configurations (bench/tasks_configs/mode_7.json to
+     mode_10.json: one agent against one scripted bot, arena 350, 500
+     pellets, no viruses) at 8192 envs after 1 step (integer state equal in
+     every env), after 8 steps and after one k=10 call (at most 0.5% of
+     envs diverge), mode 0 with 8 bots (9 players) at 2048 envs, and a
+     forced cross-eat; the bot pass and the cross-eat must have fired;
+ 14. the duel main paths: the screen path (reset + multi_step(k=10), K1 10
+     launches, K3 11, plain 0, equal to the torch backend) in modes 10, 7,
+     8 and 9; the duel's RAM path on resident state (multi_step(k=40));
+     mode 0 with 8 bots (2048 envs) and mode 0 with 2 agents and 1 bot
+     through the per-step composition (mode 0 respawns) against the torch
+     backend; K2 at 2 players against ram_frame;
+ 15. times: duel screen-path env-steps/s for both backends, K1 per k=1
+     step at 1, 2 and 9 players against its bound, the single-player RAM
+     path again beside phase 5.
 
 Then a JSON line describing each kernel, the GPU line and, last, the
 device JSON line.
@@ -107,11 +124,12 @@ def _timed(fn, dev, reps: int) -> float:
     return (time.perf_counter() - t0) / reps
 
 
-def _random_actions(n: int, dev) -> torch.Tensor:
-    """(n, 1, 3) per-env targets in [-1, 1]^2 and actions in {0, 1, 2}."""
+def _random_actions(n: int, dev, agents: int = 1) -> torch.Tensor:
+    """(n, agents, 3) per-env targets in [-1, 1]^2 and actions in
+    {0, 1, 2}."""
     rng = np.random.default_rng(0)
-    acts = np.concatenate([rng.uniform(-1.0, 1.0, (n, 1, 2)),
-                           rng.integers(0, 3, (n, 1, 1))], axis=-1)
+    acts = np.concatenate([rng.uniform(-1.0, 1.0, (n, agents, 2)),
+                           rng.integers(0, 3, (n, agents, 1))], axis=-1)
     return torch.from_numpy(acts.astype(np.float32)).to(dev)
 
 
@@ -185,20 +203,21 @@ def _bound_ms(nbytes: float, ops: float):
 def _tick_work(cfg, ocfg, n: int, k: int):
     """Bytes and f32 operations of one K1 call of k steps: every state
     plane read and written once, the actions read, the RAM frames (with a
-    RamObsConfig) and (mass, alive) rows written; counted operations are
-    the pellet-eat distance tests of one cell per tick (6 each) and the
-    frame's nearest-key scans (8 per pellet or virus key and pick) — a
-    lower bound of the work."""
+    RamObsConfig, one per agent) and (mass, alive) rows written; counted
+    operations are the pellet-eat distance tests of one cell per player
+    and tick (6 each) and the frames' nearest-key scans (8 per pellet or
+    virus key and pick) — a lower bound of the work."""
     from agarcl_tpu_torch.obs.ram import ram_size
     from agarcl_tpu_torch.ops import fused_tick as FT
+    A = cfg.num_agents
     state = sum(r * (1 if dt == torch.bool else 4)
                 for _, r, dt in FT._plane_specs(cfg))
-    frame = 4 * ram_size(cfg, ocfg) if ocfg is not None else 0
-    nbytes = n * (2 * state + 12 + k * (frame + 8 * cfg.num_players))
-    per_step = cfg.ticks_per_step * cfg.pellet_capacity * 6
+    frame = 4 * A * ram_size(cfg, ocfg) if ocfg is not None else 0
+    nbytes = n * (2 * state + 12 * A + k * (frame + 8 * cfg.num_players))
+    per_step = cfg.ticks_per_step * cfg.pellet_capacity * 6 * cfg.num_players
     if ocfg is not None:
-        per_step += 8 * (ocfg.num_pellets * cfg.pellet_capacity
-                         + ocfg.num_viruses * cfg.virus_capacity)
+        per_step += 8 * A * (ocfg.num_pellets * cfg.pellet_capacity
+                             + ocfg.num_viruses * cfg.virus_capacity)
     return nbytes, n * k * per_step
 
 
@@ -350,7 +369,9 @@ def _ptxas_summary(log: str) -> str:
             for short in ("multi_step_kernel", "ram_frame_kernel",
                           "screen_kernel", "grid_kernel"):
                 if short in name:
-                    name = short
+                    cap = name.split("multi_step_kernelILi")[-1]
+                    name = (f"{short}<{cap.split('E')[0]}>"
+                            if short == "multi_step_kernel" else short)
         elif "Used" in line and name:
             out.append(f"{name}: {line.split(':', 1)[1].strip()}")
             name = None
@@ -377,12 +398,206 @@ def _k1_event_ms(cfg, n: int, ocfg, k: int, dev, reps: int = 3) -> float:
     return statistics.median(times)
 
 
+DUEL_TASK = dict(num_agents=1, ticks_per_step=4, arena_size=350,
+                 num_pellets=500, num_viruses=0, num_bots=1,
+                 reward_type=True)       # bench/tasks_configs/mode_7..10.json
+N_ROSTER = 2048                          # envs of the mode-0 rosters
+
+
+def _kernel_modules():
+    from agarcl_tpu_torch.ops import fused_grid as FG
+    from agarcl_tpu_torch.ops import fused_obs
+    from agarcl_tpu_torch.ops import fused_screen as FS
+    from agarcl_tpu_torch.ops import fused_tick as FT
+    return FT, fused_obs, FS, FG
+
+
+def _zero_counts() -> None:
+    for m in _kernel_modules():
+        m.launches = m.plain_calls = 0
+
+
+def _plain_count() -> int:
+    return sum(m.plain_calls for m in _kernel_modules())
+
+
+def _fmt(e, n: int) -> str:
+    return (f"{e[0]} envs ({100.0 * e[0] / n:.3f}%) differ in integer "
+            f"state; in the rest max f32 state err {e[1]:.3g}, obs err "
+            f"{e[2]:.3g}, reward err {e[3]:.3g}, dones equal")
+
+
+def _rosters():
+    """(label, cfg, envs) of phase 13: the four duel task configurations
+    and mode 0 with 8 bots in the bench.py world."""
+    from agarcl_tpu_torch import EnvConfig
+    out = [(f"mode {m}", EnvConfig(mode=m, **DUEL_TASK), N_ENVS)
+           for m in (7, 8, 9, 10)]
+    out.append(("mode 0 with 8 bots", EnvConfig(
+        num_agents=1, ticks_per_step=4, arena_size=350, num_pellets=500,
+        num_viruses=10, num_bots=8, mode=0), N_ROSTER))
+    return out
+
+
+def _phase13(dev, ocfg) -> float:
+    """K1 with bots and cross-player eating against its plain version;
+    returns the largest error seen."""
+    from agarcl_tpu_torch.env import env_reset, reset_seeds
+    from agarcl_tpu_torch.ops import fused_step
+    from agarcl_tpu_torch.ops import fused_tick as FT
+
+    def both(cfg, rk, rp, k, a):
+        return (fused_step.multi_step_resident(cfg, rk, a, k, ocfg),
+                fused_step.multi_step_resident(
+                    cfg, rp, a, k, ocfg, step=FT.multi_step_raw_plain))
+
+    err = 0.0
+    acts = _random_actions(N_ENVS, dev)
+    for label, cfg, n in _rosters():
+        a, max_bad = acts[:n], int(MAX_DIVERGED_SHARE * n)
+        s0 = env_reset(cfg, reset_seeds(n, 0, dev))
+        res = lambda: fused_step.to_resident(cfg, s0)  # noqa: E731
+        o1k, o1p = both(cfg, res(), res(), 1, a)
+        e1 = _compare_runs(cfg, o1k, o1p, 0, f"{label}: after 1 step")
+        o8k, o8p = both(cfg, o1k[0], o1p[0], 7, a)
+        e8 = _compare_runs(cfg, o8k, o8p, max_bad, f"{label}: after 8 steps")
+        s8 = fused_step.from_resident(cfg, o8k[0])
+        bots = slice(cfg.num_agents, None)
+        moved = int((s8.target[:, bots] != s0.target[:, bots]).flatten(1)
+                    .any(1).sum())
+        eaten = int((s8.cells_eaten > 0).any(1).sum())
+        _check(moved > 0, f"{label}: bot targets changed")
+        del o1k, o1p, o8k, o8p, s8
+        o10k, o10p = both(cfg, res(), res(), 10, a)
+        e10 = _compare_runs(cfg, o10k, o10p, max_bad,
+                            f"{label}: after one k=10 call")
+        del o10k, o10p
+        err = max(err, *e1[1:], *e8[1:], *e10[1:])
+        print(f"[13 K1 with bots] {label} ({cfg.num_players} players), {n} "
+              f"envs, reset(0), random agent actions: after 1 step "
+              f"{_fmt(e1, n)}; after 8 steps {_fmt(e8, n)}; after one k=10 "
+              f"call {_fmt(e10, n)}; after 8 steps bot targets moved in "
+              f"{moved} envs, a cell was eaten across players in {eaten}",
+              flush=True)
+    # a forced cross-eat: a 500-mass agent cell on the bot's spawn
+    cfg = _rosters()[3][1]
+    s0 = env_reset(cfg, reset_seeds(N_ENVS, 0, dev))
+    cp, cm = s0.cell_pos.clone(), s0.cell_mass.clone()
+    cp[:, 0, 0], cm[:, 0, 0] = cp[:, 1, 0], 500
+    s0 = s0.replace(cell_pos=cp, cell_mass=cm)
+    ok, op = both(cfg, fused_step.to_resident(cfg, s0),
+                  fused_step.to_resident(cfg, s0), 1, acts)
+    e = _compare_runs(cfg, ok, op, 0, "forced cross-eat: after 1 step")
+    sk = fused_step.from_resident(cfg, ok[0])
+    eaten = int((sk.cells_eaten[:, 0] > 0).sum())
+    _check(eaten > N_ENVS // 2, f"forced cross-eat: the agent ate the bot "
+           f"in most envs ({eaten})")
+    dones = int(ok[3][0, :, 0].sum())
+    _check(dones >= eaten, f"forced cross-eat: done on death ({dones})")
+    err = max(err, *e[1:])
+    print(f"[13 K1 with bots] forced cross-eat (mode 10, agent cell of 500 "
+          f"on the bot), {N_ENVS} envs, 1 step: {_fmt(e, N_ENVS)}; the agent "
+          f"ate the bot in {eaten} envs, {dones} envs done", flush=True)
+    return err
+
+
+def _duel_screen(cfg, dev, acts, scr, label):
+    """Phase 14's screen path in one duel mode: reset + multi_step(k=10)
+    on the card (counts from zero), then the torch backend from the same
+    state. Returns (K1 launches, plain seconds, the card's VecEnv)."""
+    from agarcl_tpu_torch.vec import VecEnv
+    FT, _, FS, _ = _kernel_modules()
+    max_bad = int(MAX_DIVERGED_SHARE * N_ENVS)
+    senv = VecEnv(cfg, N_ENVS, "screen", obs_config=scr)
+    penv = VecEnv(cfg, N_ENVS, "screen", backend="torch", device=dev,
+                  obs_config=scr)
+    _zero_counts()
+    st0, sobs0 = senv.reset(0)
+    st, sobs, srew, sdone = senv.multi_step(st0, acts, K_SCREEN)
+    torch.cuda.synchronize(dev)
+    k1, k3, plain = FT.launches, FS.launches, _plain_count()
+    _check(k1 == K_SCREEN and k3 == K_SCREEN + 1 and plain == 0,
+           f"{label} screen path launches K1 {K_SCREEN}x, K3 "
+           f"{K_SCREEN + 1}x, plain 0x (K1 {k1}, K3 {k3}, plain {plain})")
+    _check(tuple(sobs.shape) == (K_SCREEN, N_ENVS, 1, 1, S_SCREEN, S_SCREEN,
+                                 4) and sobs.dtype == torch.uint8,
+           f"{label} screen obs shape")
+    _check(bool(torch.isfinite(srew).all()), f"{label} finite rewards")
+    drawn = int((sobs[-1, :, 0, 0, :, :, 1] == 255).flatten(1).any(1).sum())
+    _check(drawn > 0, f"{label}: the bot drawn (G 255) in some frame")
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    pst, pobs, prew, pdone = penv.multi_step(st0, acts, K_SCREEN)
+    torch.cuda.synchronize(dev)
+    prew.sum().item()
+    t_plain = time.perf_counter() - t0
+    same = ~_int_mismatch_envs(st, pst)
+    n_div = int((~same).sum())
+    _check(n_div <= max_bad, f"{label} screen path: at most {max_bad} envs "
+           f"diverge ({n_div})")
+    rew_err = (srew[:, same] - prew[:, same]).abs().max().item()
+    _check(rew_err <= TOL_REWARD and bool(torch.equal(sdone[:, same],
+                                                      pdone[:, same])),
+           f"{label} screen rewards within 1e-5 ({rew_err}), dones equal")
+    bad_px = int((sobs[:, same] != pobs[:, same]).any(-1).sum())
+    _check(bad_px == 0, f"{label} screen frames equal ({bad_px} pixels)")
+    print(f"[14 duel screen path] {label}, reset + multi_step(k={K_SCREEN}) "
+          f"at {N_ENVS} envs, S={S_SCREEN} agent view: K1 launches {k1}, K3 "
+          f"launches {k3}, plain calls {plain}; the bot drawn in {drawn} "
+          f"last frames; against the torch backend {n_div} envs diverge, in "
+          f"the rest max reward err {rew_err:.3g}, dones equal "
+          f"({int(sdone.sum())} done agent-steps), 0 pixels differ",
+          flush=True)
+    return k1, t_plain, senv
+
+
+def _per_step_ram(cfg, n, dev, k, label):
+    """A mode-0 roster's RAM path on the card (per step: mode 0 respawns)
+    against the torch backend; returns K1's launches."""
+    from agarcl_tpu_torch.vec import VecEnv
+    FT = _kernel_modules()[0]
+    a = _random_actions(n, dev, cfg.num_agents)
+    env = VecEnv(cfg, n, "ram")
+    penv = VecEnv(cfg, n, "ram", backend="torch", device=dev)
+    _zero_counts()
+    s0, _ = env.reset(0)
+    st, obs, rew, done = env.multi_step(s0, a, k)
+    torch.cuda.synchronize(dev)
+    k1, plain = FT.launches, _plain_count()
+    _check(k1 == k and plain == 0, f"{label}: K1 {k}x, plain 0x (K1 {k1}, "
+           f"plain {plain})")
+    pst, pobs, prew, pdone = penv.multi_step(s0, a, k)
+    _check(obs.shape == pobs.shape and obs.shape[3] == cfg.num_agents,
+           f"{label}: one RAM frame per agent {tuple(obs.shape)}")
+    same = ~_int_mismatch_envs(st, pst)
+    n_div, max_bad = int((~same).sum()), int(MAX_DIVERGED_SHARE * n)
+    _check(n_div <= max_bad, f"{label}: at most {max_bad} envs diverge "
+           f"({n_div})")
+    obs_err = (obs[:, same] - pobs[:, same]).abs().max().item()
+    rew_err = (rew[:, same] - prew[:, same]).abs().max().item()
+    _check(bool(torch.allclose(obs[:, same], pobs[:, same], **TOL_RAM))
+           and rew_err <= TOL_REWARD
+           and bool(torch.equal(done[:, same], pdone[:, same])),
+           f"{label}: obs within 1e-5/1e-4 ({obs_err}), rewards within 1e-5 "
+           f"({rew_err}), dones equal")
+    _check(bool(st.player_alive().all()), f"{label}: mode 0 respawned "
+           "every dead player")
+    print(f"[14 {label}] {n} envs, multi_step(k={k}) per step on the card: "
+          f"K1 launches {k1}, plain calls {plain}; obs {tuple(obs.shape)}; "
+          f"against the torch backend {n_div} envs diverge, in the rest max "
+          f"obs err {obs_err:.3g}, reward err {rew_err:.3g}, dones equal; "
+          f"cells eaten across players {int(st.cells_eaten.sum())}",
+          flush=True)
+    return k1
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "false); nothing was run", file=sys.stderr)
         return 2
     from agarcl_tpu_torch import EnvConfig
+    from agarcl_tpu_torch.env import env_reset, reset_seeds
     from agarcl_tpu_torch.obs.grid import GridObsConfig
     from agarcl_tpu_torch.obs.ram import RamObsConfig, ram_frame
     from agarcl_tpu_torch.obs.screen import ScreenObsConfig
@@ -469,14 +684,9 @@ def main() -> int:
     del out40_k, out40_p
     k1_err = max(max(e[1:]) for e in (e1, e8, e40))
 
-    def fmt(e):
-        return (f"{e[0]} envs ({100.0 * e[0] / N:.3f}%) differ in integer "
-                f"state; in the rest max f32 state err {e[1]:.3g}, obs err "
-                f"{e[2]:.3g}, reward err {e[3]:.3g}, dones equal")
-
     print(f"[3 K1 multi-step tick] {N} envs, reset(0), random actions: "
-          f"after 1 step {fmt(e1)}; after 8 steps {fmt(e8)}; after one "
-          f"k={k} call {fmt(e40)}", flush=True)
+          f"after 1 step {_fmt(e1, N)}; after 8 steps {_fmt(e8, N)}; after "
+          f"one k={k} call {_fmt(e40, N)}", flush=True)
 
     # --- 4. the main path goes through the kernels ---------------------------
     FT.launches = FT.plain_calls = 0
@@ -859,6 +1069,117 @@ def main() -> int:
     print(f"[12 grid profile] one multi_step(k={K_SCREEN}) under "
           f"torch.profiler: device busy {gbusy}", flush=True)
 
+    # --- 13. K1 with bots against its plain version ----------------------
+    k1_mp_err = _phase13(dev, ocfg)
+    k1_err = max(k1_err, k1_mp_err)
+
+    # --- 14. the duel main paths ------------------------------------------
+    rosters = _rosters()
+    duel10 = rosters[3][1]
+    d_k1, t_dplain, denv = _duel_screen(duel10, dev, acts, scr, "mode 10")
+    for label, c, _ in rosters[:3]:
+        _duel_screen(c, dev, acts, scr, label)
+    renv = VecEnv(duel10, N, "ram")
+    _zero_counts()
+    s, _ = renv.reset(0)
+    r = renv.make_resident(s)
+    r, robs, rrew, rdone = renv.multi_step(r, acts, k)
+    torch.cuda.synchronize(dev)
+    dr_k1, dr_k2, dr_plain = FT.launches, fused_obs.launches, _plain_count()
+    _check(dr_k1 == 1 and dr_k2 == 1 and dr_plain == 0,
+           f"duel RAM path launches K1 once, K2 once (reset), plain 0x (K1 "
+           f"{dr_k1}, K2 {dr_k2}, plain {dr_plain})")
+    _check(tuple(robs.shape) == (k, N, 1, 1, R + 4)
+           and bool(torch.isfinite(robs).all()), "duel RAM obs shape")
+    out_p = fused_step.multi_step_resident(
+        duel10, fused_step.to_resident(duel10, s), acts, k, ocfg,
+        step=FT.multi_step_raw_plain)
+    e_dr = _compare_runs(duel10, (r, robs, rrew, rdone), out_p, max_bad,
+                         f"duel RAM path after {k} steps")
+    k1_err = max(k1_err, *e_dr[1:])
+    print(f"[14 duel RAM path] mode 10, reset + make_resident + "
+          f"multi_step(k={k}) at {N} envs: K1 launches {dr_k1}, K2 launches "
+          f"{dr_k2}, plain calls {dr_plain}; obs {tuple(robs.shape)}; "
+          f"against the plain version {_fmt(e_dr, N)}; "
+          f"{int(rdone.any(0).sum())} envs done within {k} steps",
+          flush=True)
+    del r, robs, rrew, rdone, out_p
+    m0_8 = rosters[4][1]
+    m8_k1 = _per_step_ram(m0_8, N_ROSTER, dev, 2, "mode 0 with 8 bots")
+    m0_2a = EnvConfig(num_agents=2, ticks_per_step=4, arena_size=350,
+                      num_pellets=500, num_viruses=10, num_bots=1, mode=0)
+    m2_k1 = _per_step_ram(m0_2a, N_ROSTER, dev, 4,
+                          "mode 0, 2 agents and 1 bot")
+    sd, _, _, _ = VecEnv(duel10, N, "none", backend="torch",
+                         device=dev).multi_step(s, acts, 3)
+    k2_before = fused_obs.launches
+    got = fused_obs.fused_ram_obs(duel10, ocfg, FT.to_kernel_arrays(sd))
+    ref = ram_frame(duel10, ocfg, sd)
+    k2p_err = (got - ref).abs().max().item()
+    _check(fused_obs.launches == k2_before + 1
+           and bool(torch.allclose(got, ref, **TOL_RAM)),
+           f"K2 at 2 players vs ram_frame within 1e-5/1e-4 ({k2p_err})")
+    _check(bool((ref[:, 0, -4:] != 0).any()), "the bot's row is filled")
+    k2_err = max(k2_err, k2p_err)
+    print(f"[14 K2 at 2 players] mode 10, {N} envs after 3 plain steps: max "
+          f"|K2 - ram_frame| = {k2p_err:.3g}, the bot's per-player row "
+          f"filled", flush=True)
+    del got, ref, sd
+
+    # --- 15. times ---------------------------------------------------------
+    s, _ = denv.reset(0)
+    s, o, rw, _ = denv.multi_step(s, acts, K_SCREEN)             # warm
+    rw.sum().item()
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        for _ in range(4):
+            del o
+            s, o, rw, _ = denv.multi_step(s, acts, K_SCREEN)
+        torch.cuda.synchronize(dev)
+        rw.sum().item()
+        times.append((time.perf_counter() - t0) / 4)
+    del o, s
+    t_duel = statistics.median(times)
+    step_ms, step_bound = {}, {}
+    for c in (cfg, duel10, m0_8):
+        P = str(c.num_players)
+        planes = FT.to_kernel_arrays(env_reset(c, reset_seeds(N, 0, dev)))
+        step_ms[P] = _event_ms(lambda: FT.multi_step_raw(c, planes, acts, 1,
+                                                         None), 10)
+        step_bound[P] = _bound_ms(*_tick_work(c, None, N, 1))
+    del planes
+    s, _ = cuda_env.reset(0)
+    r = cuda_env.make_resident(s)
+    r, _, rw, _ = cuda_env.multi_step(r, acts, k)          # warm
+    rw.sum().item()
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        for _ in range(4):
+            r, _, rw, _ = cuda_env.multi_step(r, acts, k)
+        torch.cuda.synchronize(dev)
+        rw.sum().item()
+        times.append((time.perf_counter() - t0) / 4)
+    t_ram_again = statistics.median(times)
+    del r, rw
+    print(f"[15 times] duel screen path (mode 10), {N} envs, "
+          f"multi_step(k={K_SCREEN}), S={S_SCREEN}: kernel "
+          f"{N * K_SCREEN / t_duel:,.0f} env-steps/s ({1e3 * t_duel:.2f} "
+          f"ms/call, median of 3 runs x 4 calls); plain torch backend "
+          f"{N * K_SCREEN / t_dplain:,.0f} env-steps/s "
+          f"({1e3 * t_dplain:.2f} ms/call, 1 call: phase 14's); K1 k=1 per "
+          f"step at {N} envs from reset(0) (CUDA events, mean of 10 after 1 "
+          f"warm, as phase 9): "
+          + "; ".join(f"{P} players {step_ms[P]:.3f} ms, bound "
+                      f"{step_bound[P][0]:.4f} ms by {step_bound[P][1]}"
+                      for P in step_ms)
+          + f"; single-player RAM path again {1e3 * t_ram_again:.2f} ms per "
+          f"k={k} call ({N * k / t_ram_again:,.0f} env-steps/s; phase 5: "
+          f"{1e3 * t_kernel:.2f} ms) | {gpu}", flush=True)
+
     k1_bytes, k1_ops = _tick_work(cfg, ocfg, N, k)
     k2_bytes, k2_ops = _ram_work(cfg, ocfg, N)
     k1_bound, k2_bound = _bound_ms(k1_bytes, k1_ops), _bound_ms(k2_bytes,
@@ -867,9 +1188,14 @@ def main() -> int:
         {"name": "multi_step_tick", "route": "cuda",
          "source": "agarcl_tpu_torch/csrc/tick.cu",
          "replaces": "agarcl_tpu/ops/fused_tick.py:163",
-         "launches": k1_launches + s_k1 + g_k1,
+         "launches": k1_launches + s_k1 + g_k1 + d_k1 + dr_k1 + m8_k1
+         + m2_k1,
          "launches_by_path": {"ram": k1_launches, "screen": s_k1,
-                              "grid": g_k1},
+                              "grid": g_k1, "duel_screen": d_k1,
+                              "duel_ram": dr_k1, "mode0_8bots": m8_k1,
+                              "mode0_2agents": m2_k1},
+         "step_ms_by_players": step_ms,
+         "step_bound_ms_by_players": {P: b[0] for P, b in step_bound.items()},
          "max_abs_err": k1_err,
          "ms": 1e3 * t_kernel, "plain_ms": 1e3 * t_plain,
          "bound_ms": k1_bound[0], "bound_by": k1_bound[1],

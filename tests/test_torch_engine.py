@@ -159,8 +159,9 @@ def test_engine_tick_eventful_free_run(mode):
 
 def test_engine_tick_refuses_bots():
     from agarcl_tpu_torch.env import env_reset
-    cfg = TCfg(num_agents=1, num_bots=0, arena_size=80, num_pellets=10,
-               num_viruses=1, mode=7)
+    """Rosters above the 9-player cap (here 1 agent + 9 bots) raise."""
+    cfg = TCfg(num_agents=1, num_bots=9, arena_size=80, num_pellets=10,
+               num_viruses=1, mode=0)
     s = env_reset(cfg, torch.arange(2))
     with pytest.raises(NotImplementedError):
         t_tick(cfg, s)

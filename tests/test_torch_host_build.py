@@ -7,6 +7,7 @@ control flow without a card; the card's own check is `python3
 chip_smoke.py`. Skips without g++."""
 
 import ctypes
+import dataclasses
 import functools
 import shutil
 import subprocess
@@ -19,6 +20,7 @@ import torch
 from agarcl_tpu_torch import EnvConfig
 from agarcl_tpu_torch.env import env_reset, reset_seeds
 from agarcl_tpu_torch.obs.grid import GridObsConfig
+from agarcl_tpu_torch.obs.ram import RamObsConfig
 from agarcl_tpu_torch.ops import fused_grid as FG
 from agarcl_tpu_torch.ops import fused_tick as FT
 from agarcl_tpu_torch.ops import params as KP
@@ -33,11 +35,11 @@ HARNESS = r"""
 using namespace agarcl;
 extern "C" void host_multi_step(const EnvParams* p, void* const* planes,
                                 const float* ax, const float* ay,
-                                const int* aact, float* info, int N,
-                                int n_steps) {
+                                const int* aact, float* obs, float* info,
+                                int N, int n_steps) {
   const Planes s = planes_from(planes);
   for (int n = 0; n < N; n++)
-    multi_step_env(*p, s, n, N, ax, ay, aact, nullptr, info, n_steps);
+    multi_step_env(*p, s, n, N, ax, ay, aact, obs, info, n_steps);
 }
 extern "C" void host_grid(const EnvParams* p, const GridParams* q,
                           void* const* planes, uint8_t* out, int N) {
@@ -76,38 +78,42 @@ def host_lib(tmp_path_factory):
                    timeout=300)
     lib = ctypes.CDLL(str(so))
     vp, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.host_multi_step.argtypes = [vp, vp, vp, vp, vp, vp, i32, i32]
+    lib.host_multi_step.argtypes = [vp, vp, vp, vp, vp, vp, vp, i32, i32]
     lib.host_grid.argtypes = [vp, vp, vp, vp, i32]
     return lib
 
 
 def _host_steps(lib, cfg, state, acts, k):
-    """(planes, info) of k steps of the K1 source on CPU planes."""
+    """(planes, obs, info) of k steps of the K1 source on CPU planes, with
+    every agent's RAM frame."""
     planes = FT.to_kernel_arrays(state)
     n = state.num_envs
     ax, ay, aact = FT._actions_planes(cfg, acts, n)
+    prm = KP.env_params(cfg, RamObsConfig())
+    obs = torch.zeros((k, n, cfg.num_agents, prm.R))
     info = torch.zeros((k, n, 2, cfg.num_players))
-    lib.host_multi_step(ctypes.byref(KP.env_params(cfg, None)),
-                        FT._ptr_array(planes), ax.data_ptr(), ay.data_ptr(),
-                        aact.data_ptr(), info.data_ptr(), n, k)
-    return planes, info
+    lib.host_multi_step(ctypes.byref(prm), FT._ptr_array(planes),
+                        ax.data_ptr(), ay.data_ptr(), aact.data_ptr(),
+                        obs.data_ptr(), info.data_ptr(), n, k)
+    return planes, obs, info
 
 
 def _assert_same_steps(lib, cfg, state, acts, k):
-    got, ginfo = _host_steps(lib, cfg, state, acts, k)
-    want, _, winfo = FT.multi_step_raw_plain(
-        cfg, FT.to_kernel_arrays(state), acts, k, None)
+    got, gobs, ginfo = _host_steps(lib, cfg, state, acts, k)
+    want, wobs, winfo = FT.multi_step_raw_plain(
+        cfg, FT.to_kernel_arrays(state), acts, k, RamObsConfig())
     names = [name for name, _, _ in FT._plane_specs(cfg)]
     for name, a, b in zip(names, got, want):
         assert torch.equal(a, b), name
     assert torch.equal(ginfo, winfo)
+    assert torch.allclose(gobs, wobs, rtol=1e-5, atol=1e-4)
     return got
 
 
-def _acts(n, seed):
+def _acts(n, seed, agents=1):
     rng = np.random.default_rng(seed)
-    a = np.concatenate([rng.uniform(-1, 1, (n, 1, 2)),
-                        rng.integers(0, 3, (n, 1, 1))], -1)
+    a = np.concatenate([rng.uniform(-1, 1, (n, agents, 2)),
+                        rng.integers(0, 3, (n, agents, 1))], -1)
     return torch.from_numpy(a.astype(np.float32))
 
 
@@ -145,6 +151,65 @@ def test_tick_source_matches_plain_with_equal_ids(host_lib):
     acts = torch.tensor([[[0.6, -0.4, 0.0]]]).expand(N, 1, 3).contiguous()
     planes = _assert_same_steps(host_lib, CFG3, s, acts, 1)
     assert int(planes[FT.PLANE_INDEX["food_eaten"][0]].sum()) > 0
+
+
+def _crowd(cfg, n, seed):
+    """Every player's first cell within 16 of the arena centre at mass
+    25-700 (so bots flee and hunt and cells eat each other), a virus
+    there too; the rest of a reset world."""
+    s = env_reset(cfg, reset_seeds(n, seed))
+    g = torch.Generator().manual_seed(seed)
+    P = cfg.num_players
+    cp, cm = s.cell_pos.clone(), s.cell_mass.clone()
+    cp[:, :, 0] = 100.0 + 16.0 * (2 * torch.rand((n, P, 2), generator=g) - 1)
+    cm[:, :, 0] = torch.randint(25, 700, (n, P), generator=g,
+                                dtype=torch.int32)
+    vp = s.virus_pos.clone()
+    vp[:, 0] = 100.0
+    return s.replace(cell_pos=cp, cell_mass=cm, virus_pos=vp)
+
+
+def _roster(mode, bots=1, agents=1):
+    return EnvConfig(num_agents=agents, ticks_per_step=4, arena_size=200,
+                     num_pellets=150, num_viruses=6, num_bots=bots,
+                     mode=mode)
+
+
+@pytest.mark.parametrize("cfg", [
+    _roster(7), _roster(8), _roster(9), _roster(10), _roster(0, 4),
+    _roster(0, 8), _roster(0, 1, 2)],
+    ids=["mode7", "mode8", "mode9", "mode10", "P5", "P9", "2agents"])
+def test_tick_source_matches_plain_with_bots(host_lib, cfg):
+    """Crowded rosters for 3 steps (bots decide at ticks 0 and 10): cross
+    eats, flee, hunt, contested pellets and a virus in the crowd."""
+    s = _crowd(cfg, N, cfg.num_players)
+    planes = _assert_same_steps(host_lib, cfg, s,
+                                _acts(N, 4, cfg.num_agents), 3)
+    eaten = planes[FT.PLANE_INDEX["cells_eaten"][0]]
+    tx = planes[FT.PLANE_INDEX["target"][0]][cfg.num_agents:]
+    assert int(eaten.sum()) > 0
+    assert bool((tx != s.target[:, cfg.num_agents:, 0].T).any())
+
+
+def test_tick_source_matches_plain_on_a_claimed_virus(host_lib):
+    """Both duel players reach virus 0, player 1 virus 1 too: player 0's
+    claim stands and player 1 gets no event (no fallback to virus 1) in
+    the one tick of the step."""
+    cfg = dataclasses.replace(_roster(7), ticks_per_step=1)
+    s = env_reset(cfg, reset_seeds(N, 5))
+    cp, cm = s.cell_pos.clone(), s.cell_mass.clone()
+    vp, va = s.virus_pos.clone(), s.virus_alive.clone()
+    cp[:, 0, 0] = torch.tensor([100.0, 100.0])
+    cp[:, 1, 0] = torch.tensor([101.0, 100.0])
+    cm[:, :, 0] = 400
+    vp[:, 0], vp[:, 1] = torch.tensor([100.5, 100.0]), torch.tensor([103.0,
+                                                                     100.0])
+    va[:, :2] = True
+    s = s.replace(cell_pos=cp, cell_mass=cm, virus_pos=vp, virus_alive=va)
+    acts = torch.zeros((N, 1, 3))
+    planes = _assert_same_steps(host_lib, cfg, s, acts, 1)
+    ve = planes[FT.PLANE_INDEX["viruses_eaten"][0]]
+    assert bool((ve[0] >= 1).all()) and bool((ve[1] == 0).all())
 
 
 @functools.lru_cache(maxsize=None)

@@ -83,10 +83,10 @@ def test_multi_step_wrapper_validates_before_building(no_build):
                           RamObsConfig())
     with pytest.raises(ValueError):
         FT.multi_step_raw(CFG, planes, acts, 0, RamObsConfig())
-    duel = EnvConfig(num_agents=1, arena_size=100, num_pellets=20,
-                     num_viruses=2, mode=7)
+    ten = EnvConfig(num_agents=1, arena_size=100, num_pellets=20,
+                    num_viruses=2, num_bots=9, mode=0)     # 10 players
     with pytest.raises(NotImplementedError):
-        FT.multi_step_raw(duel, _planes(cfg=duel), acts, 1, RamObsConfig())
+        FT.multi_step_raw(ten, _planes(cfg=ten), acts, 1, RamObsConfig())
 
 
 def test_ram_frame_wrapper_validates_before_building(no_build):
@@ -445,3 +445,115 @@ def test_grid_step_compositions_on_the_card_match_plain(cuda_device):
     launches = FT.launches, FG.launches
     _step_compositions_match_plain(cuda_device, 512, "grid")
     assert (FT.launches - launches[0], FG.launches - launches[1]) == (8, 8)
+
+
+# ------------------------------------------------------- rosters with bots
+def _roster(mode, bots=1, agents=1):
+    return EnvConfig(num_agents=agents, ticks_per_step=4, arena_size=200,
+                     num_pellets=150, num_viruses=6, num_bots=bots,
+                     mode=mode)
+
+
+ROSTERS = {"mode7": _roster(7), "mode10": _roster(10), "P5": _roster(0, 4),
+           "P9": _roster(0, 8), "2agents": _roster(0, 1, 2)}
+
+
+def _crowd_state(cfg, n, dev, seed=0):
+    """Every player's first cell within 16 of the arena centre at mass
+    25-700 and a virus there: bots flee and hunt, cells eat each other."""
+    s = env_reset(cfg, reset_seeds(n, seed, dev))
+    g = torch.Generator().manual_seed(seed)
+    P = cfg.num_players
+    cp, cm = s.cell_pos.clone(), s.cell_mass.clone()
+    cp[:, :, 0] = (100.0 + 16.0 * (2 * torch.rand((n, P, 2), generator=g)
+                                   - 1)).to(dev)
+    cm[:, :, 0] = torch.randint(25, 700, (n, P), generator=g,
+                                dtype=torch.int32).to(dev)
+    vp = s.virus_pos.clone()
+    vp[:, 0] = 100.0
+    return s.replace(cell_pos=cp, cell_mass=cm, virus_pos=vp)
+
+
+def _roster_acts(cfg, n, dev):
+    rng = np.random.default_rng(1)
+    a = np.concatenate([rng.uniform(-1, 1, (n, cfg.num_agents, 2)),
+                        rng.integers(0, 3, (n, cfg.num_agents, 1))], -1)
+    return torch.from_numpy(a.astype(np.float32)).to(dev)
+
+
+def test_roster_planes_run_the_plain_version(no_build):
+    """Two agents and a bot on CPU planes: one RAM frame per agent, one
+    (mass, alive) column per player."""
+    cfg = ROSTERS["2agents"]
+    before = FT.launches, FT.plain_calls
+    planes, obs, info = FT.multi_step_raw(
+        cfg, FT.to_kernel_arrays(_crowd_state(cfg, 4, torch.device("cpu"))),
+        torch.zeros(4, 2, 3), 2, RamObsConfig())
+    assert (FT.launches, FT.plain_calls) == (before[0], before[1] + 1)
+    assert tuple(obs.shape) == (2, 4, 2, 239)
+    assert tuple(info.shape) == (2, 4, 2, 3)
+
+
+def _ram_step_composition_matches_plain(dev, n):
+    """Mode 0 with 4 bots and RAM frames: fused_env_step (respawn_all after
+    a forced cross-eat) against the plain torch backend's per-step path."""
+    cfg = ROSTERS["P5"]
+    s = _crowd_state(cfg, n, dev, 3)
+    cp, cm = s.cell_pos.clone(), s.cell_mass.clone()
+    cp[:, 0, 0], cm[:, 0, 0] = cp[:, 1, 0], 900
+    s = s.replace(cell_pos=cp, cell_mass=cm)
+    acts = _roster_acts(cfg, n, dev)
+    want = VecEnv(cfg, n, "ram", backend="torch", device=dev).multi_step(
+        s, acts, 2)
+    outs = []
+    for _ in range(2):
+        s, *out = fused_step.fused_env_step(cfg, s, acts, RamObsConfig())
+        outs.append(out)
+    got = (s, *(torch.stack(x) for x in zip(*outs)))
+    assert int(_int_mismatch(got[0], want[0]).sum()) == 0
+    torch.testing.assert_close(got[1], want[1], rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(got[2], want[2], rtol=0, atol=1e-5)
+    assert torch.equal(got[3], want[3])
+    assert int(want[0].cells_eaten.sum()) >= n
+    assert bool(want[0].player_alive().all())            # respawned
+
+
+def test_ram_step_composition_on_cpu_planes_matches_plain(no_build):
+    _ram_step_composition_matches_plain(torch.device("cpu"), 4)
+
+
+@pytest.mark.gpu
+def test_ram_step_composition_on_the_card_matches_plain(cuda_device):
+    before = FT.launches
+    _ram_step_composition_matches_plain(cuda_device, 512)
+    assert FT.launches == before + 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(ROSTERS))
+def test_multi_step_kernel_matches_plain_with_bots(cuda_device, name):
+    """K1 on crowded rosters (bot decisions, cross-player eating, contested
+    pellets and viruses) against the plain engine: every integer field
+    equal after one step; after four at most 1% of envs diverge."""
+    cfg, n = ROSTERS[name], 512
+    s = _crowd_state(cfg, n, cuda_device)
+    acts = _roster_acts(cfg, n, cuda_device)
+    for k, allowed in ((1, 0), (4, n // 100)):
+        before = FT.launches
+        rk, ok, rwk, dk = fused_step.multi_step_resident(
+            cfg, fused_step.to_resident(cfg, s), acts, k, RamObsConfig())
+        rp, op, rwp, dp = fused_step.multi_step_resident(
+            cfg, fused_step.to_resident(cfg, s), acts, k, RamObsConfig(),
+            step=FT.multi_step_raw_plain)
+        assert FT.launches == before + 1
+        sk, sp = (fused_step.from_resident(cfg, rk),
+                  fused_step.from_resident(cfg, rp))
+        bad = _int_mismatch(sk, sp)
+        assert int(bad.sum()) <= allowed
+        keep = ~bad
+        torch.testing.assert_close(ok[:, keep], op[:, keep], rtol=1e-5,
+                                   atol=1e-4)
+        torch.testing.assert_close(rwk[:, keep], rwp[:, keep], rtol=0,
+                                   atol=1e-5)
+        assert torch.equal(dk[:, keep], dp[:, keep])
+    assert int(sp.cells_eaten.sum()) > 0

@@ -104,4 +104,4 @@ def test_vecenv_rejects_unported_configurations():
     with pytest.raises(ValueError, match="gobigger"):
         TVec(TCfg(**KW), N, "gobigger", backend="torch", device="cpu")
     with pytest.raises(NotImplementedError):
-        TVec(TCfg(**dict(KW, mode=7)), N, "ram")
+        TVec(TCfg(**dict(KW, mode=0, num_bots=9)), N, "ram")
