@@ -199,4 +199,35 @@ HD float pellet_y(const EnvParams& p, int key) {
   return (float(key & 32767) + 0.5f) * p.p_invy;
 }
 
+// The camera of a screen or grid frame: the centroid (cx, cy) and total
+// mass pm of player a's cells in env n. One agent takes the slot-order sum
+// of rounded products (the tick's section emission), more agents XLA's
+// chain of fmas (player_centroid, which the JAX table build for A > 1
+// uses); state.py::centroid_of and xla_centroid_of.
+HD void frame_camera(const Planes& s, int Cc, int a, int A, int n, int N,
+                     float& cx, float& cy, int& pm) {
+  float tot = 0.0f, sx = 0.0f, sy = 0.0f;
+  pm = 0;
+  for (int c = a * Cc; c < (a + 1) * Cc; c++) {
+    const long long i = (long long)c * N + n;
+    const int m = s.calive[i] ? s.cmass[i] : 0;
+    const float w = float(m);
+    tot = tot + w;
+    if (A == 1) {
+      sx = sx + s.cx[i] * w;
+      sy = sy + s.cy[i] * w;
+    } else if (c == a * Cc) {
+      sx = s.cx[i] * w;
+      sy = s.cy[i] * w;
+    } else {
+      sx = FMAF(s.cx[i], w, sx);
+      sy = FMAF(s.cy[i], w, sy);
+    }
+    pm += m;
+  }
+  const float den = fmaxf(tot, 1.0f);
+  cx = sx / den;
+  cy = sy / den;
+}
+
 }  // namespace agarcl

@@ -1,45 +1,49 @@
-// Kernel K4: the grid frame of every env from the state planes.
+// Kernel K4: the grid frame of every env and agent from the state planes.
 //
 // Replaces the TPU kernel agarcl_tpu/ops/fused_grid.py::_make_kernel
 // (launched by fused_grid_channels and fused_grid_frame_from_secs),
 // together with the tick kernel's grid_tab section emission
-// (agarcl_tpu/ops/fused_tick.py:2436-2457), which has no separate pass
-// here: each block builds its env's camera and entity bins from the planes
-// itself. Wrapper and plain version: agarcl_tpu_torch/ops/fused_grid.py
-// (grid_sections + rasterize_plain; channel semantics in obs/grid.py).
+// (agarcl_tpu/ops/fused_tick.py:2436-2457) and the XLA table build of its
+// one-row-per-(env, agent) input (_build_grid_table(agents=A)), which have
+// no separate pass here: each block builds its agent's camera and entity
+// bins from the planes itself. Wrapper and plain version:
+// agarcl_tpu_torch/ops/fused_grid.py (grid_sections + rasterize_plain;
+// channel semantics in obs/grid.py).
 //
-// Design: one block of 256 threads per env. Thread 0 computes the camera
-// (the slot-order centroid of player 0's cells and view = clamp(2*mass,
+// Design: one block of 256 threads per (env, agent), block b = n*A + a,
+// from two instantiations (one agent or more). Thread 0 computes the camera
+// (frame_camera: the centroid of player a's cells, and view = clamp(2*mass,
 // 100, 300)); the block writes the out-of-bounds flag of each grid row and
 // column and clears a G x G int32 histogram in shared memory. One thread
 // per pellet adds 1 to its bin with a shared atomicAdd (integer atomics
 // give the same counts in any order, so the frame is exact and
-// deterministic). Viruses, own cells and other players' cells, a few
-// hundred at most, go into a short shared list (bin, kind, mass) and set a
-// flag bit in their bin's histogram word. The output pass gives each
+// deterministic). Viruses, own cells (player a's) and other players' cells,
+// a few hundred at most, go into a short shared list (bin, kind, mass) and
+// set a flag bit in their bin's histogram word. The output pass gives each
 // thread whole pixels: OOB from the row and column flags, pellet presence
 // and count from the histogram, and, only in a flagged bin, virus max and
 // total, own total and others' min and max from a scan of the list; it
 // writes the selected channels, saturated to the output dtype, straight
-// into the caller's (C, G, G) slice. The TPU kernel's one-hot MXU
-// products, its 2^17 count weight and its block-level exact rewrite have
-// no counterpart.
+// into the caller's (C, G, G) slice. The TPU kernel's one-hot MXU products,
+// its 2^17 count weight and its block-level exact rewrite have no
+// counterpart.
 //
 // f32 arithmetic follows the plain version (obs/grid.py): bins are
 // trunc(G*(x - cx)/view + G/2) with an IEEE division, the row and column
 // coordinates fma((i - G/2)*view, f32(1/G), c); built with --fmad=false,
 // so nothing else is contracted.
 //
-// What bounds it on Hopper: the frame store, C*G*G output elements per env
-// (64 KB at G=64 in int16 with 8 channels, 537 MB at 8192 envs), against
-// about 2.5 KB of plane reads per env; the binning stays in shared memory.
+// What bounds it on Hopper: the frame store, C*G*G output elements per
+// frame (64 KB at G=64 in int16 with 8 channels, 537 MB at 8192 envs of one
+// agent), against about 2.5 KB of plane reads per env; the binning stays
+// in shared memory.
 #include "common.cuh"
 
 namespace agarcl {
 
 // Mirrors agarcl_tpu_torch/ops/fused_grid.py::GridParams.
 struct GridParams {
-  int G, C, elem;     // grid size, selected channels, output bytes
+  int G, C, elem, A;  // grid size, selected channels, output bytes, agents
   int chan[8];        // selected channel ids in output order
   float rg, W, H;     // f32(1/G), arena width and height
 };
@@ -114,27 +118,20 @@ HD int grid_value(int ch, int oob, int cnt, int vmax, int vsum, int own,
 
 #define AT(plane, f) (plane)[(long long)(f) * N + n]
 
-// The frame of env n, drawn by thread tid of nthr (a host build runs it
-// with tid 0 of 1). Scratch: cam[3], nent[1], flags[2*G] (row, column
-// inside the arena), hist[G*G], ents[GRID_MAX_ENTS]; out: C*G*G elements.
+// The frame of agent a in env n, drawn by thread tid of nthr (a host
+// build runs it with tid 0 of 1); MULTI serves q.A > 1 agents (one agent
+// compiles to the single-agent code). Scratch: cam[3], nent[1],
+// flags[2*G] (row, column inside the arena), hist[G*G],
+// ents[GRID_MAX_ENTS]; out: C*G*G elements.
+template <bool MULTI>
 HD void grid_env(const EnvParams& p, const GridParams& q, const Planes& s,
-                 int n, int N, float* cam, int* nent, uint8_t* flags,
+                 int n, int a, int N, float* cam, int* nent, uint8_t* flags,
                  int* hist, GridEnt* ents, uint8_t* out, int tid, int nthr) {
-  const int G = q.G, GG = q.G * q.G, Cc = p.Cc;
+  if (!MULTI) a = 0;
+  const int G = q.G, GG = q.G * q.G, Cc = p.Cc, own0 = a * Cc;
   if (tid == 0) {
-    float tot = 0.0f, sx = 0.0f, sy = 0.0f;
-    int pm = 0;
-    for (int c = 0; c < Cc; c++) {
-      const int m = AT(s.calive, c) ? AT(s.cmass, c) : 0;
-      const float w = float(m);
-      tot = tot + w;
-      sx = sx + AT(s.cx, c) * w;
-      sy = sy + AT(s.cy, c) * w;
-      pm += m;
-    }
-    const float den = fmaxf(tot, 1.0f);
-    cam[0] = sx / den;
-    cam[1] = sy / den;
+    int pm;
+    frame_camera(s, Cc, a, MULTI ? q.A : 1, n, N, cam[0], cam[1], pm);
     cam[2] = fminf(fmaxf(2.0f * float(pm), 100.0f), 300.0f);
     *nent = 0;
   }
@@ -166,7 +163,7 @@ HD void grid_env(const EnvParams& p, const GridParams& q, const Planes& s,
       const int c = e - p.Nv;
       if (!AT(s.calive, c)) continue;
       b = grid_bin(AT(s.cx, c), AT(s.cy, c), cx, cy, view, G);
-      kind = c < Cc ? 1 : 2;
+      kind = c >= own0 && c < own0 + Cc ? 1 : 2;
       mass = AT(s.cmass, c);
     }
     if (b < 0) continue;
@@ -215,6 +212,7 @@ HD long long grid_scratch(int G) {
 #ifdef __CUDACC__
 constexpr int GRID_THREADS = 256;
 
+template <bool MULTI>
 __global__ void __launch_bounds__(GRID_THREADS)
 grid_kernel(const EnvParams p, const GridParams q, const Planes s,
             uint8_t* __restrict__ out, int N) {
@@ -225,10 +223,11 @@ grid_kernel(const EnvParams p, const GridParams q, const Planes s,
   GridEnt* ents = reinterpret_cast<GridEnt*>(gsmem + 4);
   uint8_t* flags = reinterpret_cast<uint8_t*>(ents + GRID_MAX_ENTS);
   int* hist = reinterpret_cast<int*>(flags + 4 * ((2 * G + 3) / 4));
-  const int n = blockIdx.x;
-  grid_env(p, q, s, n, N, cam, nent, flags, hist, ents,
-           out + (long long)n * q.C * G * G * q.elem, threadIdx.x,
-           blockDim.x);
+  const int b = blockIdx.x;
+  grid_env<MULTI>(p, q, s, MULTI ? b / q.A : b, MULTI ? b % q.A : 0, N, cam,
+                  nent, flags, hist, ents,
+                  out + (long long)b * q.C * G * G * q.elem, threadIdx.x,
+                  blockDim.x);
 }
 #endif
 
@@ -240,14 +239,16 @@ extern "C" int agarcl_grid(const agarcl::EnvParams* prm,
                            uint8_t* out, int N, cudaStream_t stream) {
   const agarcl::Planes s = agarcl::planes_from(planes);
   const int smem = int(agarcl::grid_scratch(q->G));
+  void (*kernel)(agarcl::EnvParams, agarcl::GridParams, agarcl::Planes,
+                 uint8_t*, int) = q->A > 1 ? agarcl::grid_kernel<true>
+                                           : agarcl::grid_kernel<false>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        agarcl::grid_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return int(err);
   }
-  agarcl::grid_kernel<<<N, agarcl::GRID_THREADS, smem, stream>>>(*prm, *q, s,
-                                                                 out, N);
+  kernel<<<N * q->A, agarcl::GRID_THREADS, smem, stream>>>(*prm, *q, s, out,
+                                                           N);
   return int(cudaGetLastError());
 }
 #endif

@@ -15,9 +15,10 @@ bin hold 0, and worlds of one player have zeros in channels 6-7.
 
 Bins. An entity at x lands in row bin trunc(G*(x - cx)/view + G/2) and
 column bin trunc(G*(y - cy)/view + G/2), f32 with a true division, where
-(cx, cy) is the agent's slot-order centroid and view = clamp(2*mass, 100,
-300); trunc is the C int cast, so (-1, 0) falls in bin 0. Frame pixel
-[r, c] is row bin r, column bin c. The out-of-bounds channel tests the
+(cx, cy) is the agent's centroid (slot-order products with one agent,
+XLA's fma chain with more: `camera`) and view = clamp(2*mass, 100, 300);
+trunc is the C int cast, so (-1, 0) falls in bin 0. Frame pixel [r, c] is
+row bin r, column bin c. The out-of-bounds channel tests the
 world coordinates cx + (i - G/2)*view/G of row i and cy + (j - G/2)*view/G
 of column j against [0, W) x [0, H) in XLA-CPU's form of that expression,
 read off its output with cameras a few ulps from the arena edge:
@@ -40,7 +41,7 @@ import torch
 
 from agarcl_tpu_torch.config import EnvConfig
 from agarcl_tpu_torch.engine.geometry import fma32
-from agarcl_tpu_torch.state import GameState, centroid_of
+from agarcl_tpu_torch.state import GameState, frame_centroid
 
 PARK = 1e9                 # coordinate of a dead lane: out of every grid
 INF = 2**30                # min-channel weight of a dead lane
@@ -126,10 +127,10 @@ def grid_tables(cam, pellet_pos, pellet_alive, virus_pos, virus_mass,
     return {k: v.to(f32).contiguous() for k, v in t.items()}
 
 
-def camera(pos, mass, alive) -> torch.Tensor:
-    """(N, 3) (cx, cy, view) of players (N, Cc, ...): the slot-order
-    centroid and view = clamp(2*mass, 100, 300)."""
-    cen = centroid_of(pos, mass, alive)
+def camera(pos, mass, alive, agents: int = 1) -> torch.Tensor:
+    """(N, 3) (cx, cy, view) of players (N, Cc, ...): the centroid
+    (state.frame_centroid) and view = clamp(2*mass, 100, 300)."""
+    cen = frame_centroid(pos, mass, alive, agents)
     pmass = torch.where(alive, mass, 0).sum(-1, dtype=torch.int32)
     view = torch.clamp(2.0 * pmass.to(torch.float32), 100.0, 300.0)
     return torch.cat([cen, view[:, None]], 1)
@@ -222,7 +223,7 @@ def grid_frame(cfg: EnvConfig, ocfg: GridObsConfig,
     frames = []
     for a in range(cfg.num_agents):
         cam = camera(state.cell_pos[:, a], state.cell_mass[:, a],
-                     state.cell_alive[:, a])
+                     state.cell_alive[:, a], cfg.num_agents)
         t = grid_tables(cam, ppos, palive, state.virus_pos,
                         state.virus_mass, state.virus_alive, state.cell_pos,
                         state.cell_mass, state.cell_alive, a)

@@ -3,15 +3,19 @@
 Kernel K4 (csrc/grid.cu) replaces the TPU kernel
 agarcl_tpu/ops/fused_grid.py::_make_kernel (launched by fused_grid_channels
 and fused_grid_frame_from_secs) together with the tick kernel's `grid_tab`
-section emission (fused_tick.py:2436-2457): one thread block per env builds
-the env's camera and entity bins straight from the K1 planes, counts
-pellets in a shared-memory histogram and writes the selected channels.
+section emission (fused_tick.py:2436-2457) and the XLA table build of its
+multi-agent rows (`_build_grid_table(agents=A)`): one thread block per
+(env, agent) builds the agent's camera and entity bins straight from the K1
+planes, counts pellets in a shared-memory histogram and writes the selected
+channels.
 
 The plain version is two functions: `grid_sections`, the emission (the 13
-input sections of `section_meta`, computed from the planes), and
-`rasterize_plain`, the rasterizer on those sections (obs/grid.py::rasterize,
-the same rasterizer the GameState path uses), then channel selection and
-saturation to the output dtype.
+input sections of `section_meta`, computed from the planes for one agent),
+and `rasterize_plain`, the rasterizer on those sections
+(obs/grid.py::rasterize, the same rasterizer the GameState path uses), then
+channel selection and saturation to the output dtype.
+
+The camera's centroid is state.frame_centroid (obs/grid.py::camera).
 
 `fused_grid_frame` launches K4 for CUDA planes and runs the plain version
 only for CPU planes; `launches` and `plain_calls` count which ran.
@@ -59,10 +63,11 @@ def _plane(planes, name: str, axis: int = 0) -> torch.Tensor:
     return planes[PLANE_INDEX[name][axis]]
 
 
-def grid_sections(cfg: EnvConfig, planes) -> dict:
-    """The grid sections of T2's `grid_tab` emission from (feature, N)
-    planes: {name: (N, padded width) f32} in `section_meta` order, for
-    agent 0 (obs/grid.py::grid_tables)."""
+def grid_sections(cfg: EnvConfig, planes, agent: int = 0) -> dict:
+    """The grid sections of agent `agent`'s frames from (feature, N)
+    planes (T2's `grid_tab` emission for one agent, the rows of
+    `_build_grid_table(agents=A)` for more): {name: (N, padded width) f32}
+    in `section_meta` order (obs/grid.py::grid_tables)."""
     N = planes[0].shape[-1]
     P, Cc = cfg.num_players, cfg.max_cells
     cpos = torch.stack([_plane(planes, "cell_pos", 0).T,
@@ -73,9 +78,11 @@ def grid_sections(cfg: EnvConfig, planes) -> dict:
     ppos, palive = decode_pellet_xy(cfg, _plane(planes, "pellet_key").T)
     vpos = torch.stack([_plane(planes, "virus_pos", 0).T,
                         _plane(planes, "virus_pos", 1).T], -1)
-    t = grid_tables(camera(cpos[:, 0], cmass[:, 0], calive[:, 0]), ppos,
-                    palive, vpos, _plane(planes, "virus_mass").T,
-                    _plane(planes, "virus_alive").T, cpos, cmass, calive, 0)
+    cam = camera(cpos[:, agent], cmass[:, agent], calive[:, agent],
+                 cfg.num_agents)
+    t = grid_tables(cam, ppos, palive, vpos, _plane(planes, "virus_mass").T,
+                    _plane(planes, "virus_alive").T, cpos, cmass, calive,
+                    agent)
     out = {}
     for name, w, pw, fill in section_meta(cfg):
         v = t[name]
@@ -101,13 +108,16 @@ def rasterize_plain(cfg: EnvConfig, G: int, secs: dict,
 
 def frame_plain(cfg: EnvConfig, ocfg: GridObsConfig, planes,
                 out: torch.Tensor | None = None) -> torch.Tensor:
-    """(N, 1, C, G, G) frames of the planes on any device: the plain
-    version of K4 (grid_sections, then rasterize_plain)."""
+    """(N, A, C, G, G) frames of the planes on any device, one per agent:
+    the plain version of K4 (grid_sections for each agent, then
+    rasterize_plain)."""
     global plain_calls
     plain_calls += 1
-    G = ocfg.grid_size
-    frame = rasterize_plain(cfg, G, grid_sections(cfg, planes),
-                            ocfg.out_dtype)[:, None, channel_index(ocfg)]
+    G, idx = ocfg.grid_size, channel_index(ocfg)
+    frame = torch.stack([
+        rasterize_plain(cfg, G, grid_sections(cfg, planes, a),
+                        ocfg.out_dtype)[:, idx]
+        for a in range(cfg.num_agents)], 1)
     if out is None:
         return frame
     return out.copy_(frame)
@@ -116,7 +126,8 @@ def frame_plain(cfg: EnvConfig, ocfg: GridObsConfig, planes,
 class GridParams(ctypes.Structure):
     """struct GridParams in csrc/grid.cu."""
     _fields_ = [("G", ctypes.c_int), ("C", ctypes.c_int),
-                ("elem", ctypes.c_int), ("chan", ctypes.c_int * 8),
+                ("elem", ctypes.c_int), ("A", ctypes.c_int),
+                ("chan", ctypes.c_int * 8),
                 ("rg", ctypes.c_float), ("W", ctypes.c_float),
                 ("H", ctypes.c_float)]
 
@@ -125,6 +136,7 @@ def grid_params(cfg: EnvConfig, ocfg: GridObsConfig) -> GridParams:
     idx = channel_index(ocfg)
     q = GridParams()
     q.G, q.C, q.elem = ocfg.grid_size, len(idx), _ELEM[ocfg.torch_dtype]
+    q.A = cfg.num_agents
     for k, c in enumerate(idx):
         q.chan[k] = c
     q.rg = np.float32(1.0 / ocfg.grid_size)
@@ -141,13 +153,11 @@ def _check_out(out, shape, dtype, dev) -> None:
 
 def fused_grid_frame(cfg: EnvConfig, ocfg: GridObsConfig, planes,
                      out: torch.Tensor | None = None) -> torch.Tensor:
-    """(N, 1, C, G, G) grid frames of kernel-layout planes
+    """(N, A, C, G, G) grid frames, one per agent, of kernel-layout planes
     (ops/fused_tick.py::to_kernel_arrays) in ocfg's dtype: K4 for CUDA
     planes, the plain version for CPU planes. `out`, if given, receives the
     frames (for instance one step of a stacked multi_step buffer)."""
     global launches
-    if cfg.num_agents != 1:
-        raise NotImplementedError("the grid kernel draws one agent's view")
     if cfg.max_cells != KP.MAX_CELLS or cfg.num_players > KP.MAX_PLAYERS:
         raise NotImplementedError("the grid kernel takes 16 cell slots and "
                                   f"at most {KP.MAX_PLAYERS} players")
@@ -162,7 +172,7 @@ def fused_grid_frame(cfg: EnvConfig, ocfg: GridObsConfig, planes,
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {dev}")
     N = check_planes(cfg, planes)
-    shape = (N, 1, ocfg.channels_per_frame, G, G)
+    shape = (N, cfg.num_agents, ocfg.channels_per_frame, G, G)
     if out is not None:
         _check_out(out, shape, dtype, dev)
     if dev.type == "cpu":

@@ -1,16 +1,18 @@
 """Screen frames from kernel-layout planes (counterpart of
-ops/fused_screen.py, circle mode).
+ops/fused_screen.py).
 
 Kernel K3 (csrc/screen.cu) replaces the TPU kernel
 agarcl_tpu/ops/fused_screen.py::_make_kernel (launched by
-_rasterize_sections and _rasterize_table) together with the tick kernel's
-`screen_tab` section emission (fused_tick.py:2459-2502): one thread block
-per env builds the env's camera and entity rows straight from the K1
-planes, draws the class map in shared memory and writes packed pixels.
+_rasterize_sections and _rasterize_table), in circle mode and in `poly`
+mode, together with the tick kernel's `screen_tab` section emission
+(fused_tick.py:2459-2502) and the XLA table build of its multi-agent rows
+(`_build_table(agents=A)`): one thread block per (env, agent) builds the
+agent's camera and entity rows straight from the K1 planes, draws the
+class map in shared memory and writes packed pixels.
 
 The plain version is two functions: `screen_sections`, the emission (the 16
-input sections of `section_meta`, computed from the planes), and
-`rasterize_plain`, the rasterizer on those sections. Its f32 arithmetic is
+input sections of `section_meta`, computed from the planes for one agent),
+and `rasterize_plain`, the rasterizer on those sections. Its f32 arithmetic is
 the TPU kernel's as XLA on the CPU evaluates it in interpret mode, read off
 its output with crafted sections: every pixel centre is
 fma(idx, half, c); the cell and grid-line passes take idx rounded as
@@ -19,8 +21,29 @@ fma; the coverage limit r2 - dy*dy is fma(-dy, dy, r2); the grid half-width
 is half * f32(1/S) and the line positions f32(f32(k)/7) * W. The camera's
 z = fma(mass, f32(0.1), 100) is XLA's own rewrite of 100 + mass/10.
 
+`poly` mode (`supports_polygon`: polygon_edges with polygon_virus="circle"
+and S <= 128) draws the reference's regular fans (5-gon pellets, 7-gon
+foods, 50-gon cells; viruses stay circles) by the TPU kernel's half-plane
+rule (`_poly_edges`): in a pixel row at offset dy from the centre the fan
+covers one interval [xlo, xhi]; xhi is the minimum over the lines with
+a > 0 of (c2*r - b*dy) * inv_a, xlo the maximum over the lines with a < 0,
+and a flat line (|a| < 1e-9) empties the row when b*dy > c2*r; inv_a =
+f32(1/a) and b = f32(sin(phi)) from float64, c2 = f32(cos(pi/n)) and
+r = sqrt(max(r2, 0)), correctly rounded. XLA's forms, read off the
+interpret-mode kernel on crafted sections: c2*r, b*dy, their difference
+and the product with inv_a are each rounded (no fma); every pass takes the
+one-fma pixel centres of the strips (rows and columns); pellets and foods
+compare dx = wx - x with [xlo, xhi], cells compare wx with the rounded
+absolute bounds xlo + x, xhi + x.
+
+The camera's centroid is state.frame_centroid: slot-order products with
+one agent, XLA's fma chain with more.
+
 `fused_screen_frame` launches K3 for CUDA planes and runs the plain version
 only for CPU planes; `launches` and `plain_calls` count which ran.
+`class_map_frame` is the GameState route of polygon configurations that
+K3 does not take (the wavy virus rim, S > 128): obs/screen.py::screen_frame
+on the planes' device.
 """
 
 from __future__ import annotations
@@ -33,22 +56,121 @@ import torch
 
 from agarcl_tpu_torch import constants as C
 from agarcl_tpu_torch.config import EnvConfig
-from agarcl_tpu_torch.engine.geometry import fma32, radius
+from agarcl_tpu_torch.engine.geometry import fma32, radius, sqrt32
 from agarcl_tpu_torch.obs.screen import (_RAD_FOOD, _RAD_PELLET,
-                                         _TAN_HALF_FOV, ScreenObsConfig,
-                                         _coords, _idx, _strip_K,
-                                         check_circle_mode, cover, palette)
+                                         _TAN_HALF_FOV, SIDES_CELL,
+                                         SIDES_FOOD, SIDES_PELLET,
+                                         ScreenObsConfig, _coords, _idx,
+                                         _strip_K, check_config, cover,
+                                         palette, screen_frame, strip_cover)
 from agarcl_tpu_torch.ops import _build
 from agarcl_tpu_torch.ops import params as KP
 from agarcl_tpu_torch.ops.fused_tick import (PLANE_INDEX, _ptr_array,
-                                             check_planes)
-from agarcl_tpu_torch.state import centroid_of, decode_pellet_xy
+                                             check_planes,
+                                             from_kernel_arrays)
+from agarcl_tpu_torch.state import (decode_pellet_xy, frame_centroid,
+                                    zero_state)
 
 launches = 0          # K3 launches
 plain_calls = 0       # frame_plain calls
 _F32 = np.float32
 _PARK = 1e9           # coordinate of a dead lane (fused_tick.py _DEAD)
 MAX_SCREEN = 448      # K3 keeps the S x S class map in shared memory
+MAX_POLY_SCREEN = 128  # poly mode's limit (pixel rows ride TPU lanes)
+MAX_LINES = 64        # half-plane lines of one fan in ScreenParams
+_HUGE = float(_F32(3.0e38))
+
+
+def supports_polygon(ocfg: ScreenObsConfig) -> bool:
+    """Whether polygon frames ride K3 (agarcl_tpu/ops/fused_screen.py
+    `supports_polygon`): the regular fans rasterize exactly by half-plane
+    row intervals, the wavy virus rim is concave and is not taken, and the
+    JAX kernel keeps pixel rows in lanes, so S <= 128."""
+    return (ocfg.polygon_edges and ocfg.polygon_virus == "circle"
+            and ocfg.screen_len <= MAX_POLY_SCREEN)
+
+
+def _poly_edges(n_sides: int):
+    """Half-plane constants of the reference's regular n-gon fan
+    (circumradius 1, first rim vertex at angle d = 2*pi/n,
+    renderables.hpp:191-200): edge t joins the vertices at angles (t+1)*d
+    and (t+2)*d, its outward normal points at phi = (t+1.5)*d, its support
+    is cos(pi/n). Returns float64 (rights, lefts, flats): rights / lefts
+    are (1/a, b) for a = cos(phi) > 0 / < 0, flats are (b,) for |a| <
+    1e-9, with b = sin(phi)."""
+    d = 2.0 * math.pi / n_sides
+    rights, lefts, flats = [], [], []
+    for t in range(n_sides):
+        phi = (t + 1.5) * d
+        a, b = math.cos(phi), math.sin(phi)
+        if abs(a) < 1e-9:
+            flats.append(b)
+        elif a > 0:
+            rights.append((1.0 / a, b))
+        else:
+            lefts.append((1.0 / a, b))
+    return rights, lefts, flats
+
+
+def fan_lines(n_sides: int):
+    """f32 (rights [(inv_a, b)], lefts, flats [b], c2) of the n-gon fan."""
+    rights, lefts, flats = _poly_edges(n_sides)
+
+    def f(v):
+        return float(_F32(v))
+    return ([(f(ia), f(b)) for ia, b in rights],
+            [(f(ia), f(b)) for ia, b in lefts], [f(b) for b in flats],
+            f(math.cos(math.pi / n_sides)))
+
+
+def fan_bounds(dy, r, n_sides: int):
+    """f32 (xlo, xhi) of the fan's row interval relative to its centre,
+    for rows at offset dy of fans of radius r (broadcast); a row that
+    misses the fan has xlo > xhi."""
+    rights, lefts, flats, c2 = fan_lines(n_sides)
+    c2r = r * c2
+    shape = torch.broadcast_shapes(dy.shape, r.shape)
+    xhi = torch.full(shape, _HUGE, dtype=torch.float32, device=dy.device)
+    xlo = torch.full(shape, -_HUGE, dtype=torch.float32, device=dy.device)
+    for inv_a, b in rights:
+        xhi = torch.minimum(xhi, (c2r - dy * b) * inv_a)
+    for inv_a, b in lefts:
+        xlo = torch.maximum(xlo, (c2r - dy * b) * inv_a)
+    for b in flats:
+        xlo = torch.where(dy * b > c2r, _HUGE, xlo)
+    return xlo, xhi
+
+
+def fan_strip(n_sides: int):
+    """Strip predicate (obs/screen.py::strip_cover) of the fan: dx within
+    the row interval."""
+    def pred(dx, dy, r2):
+        xlo, xhi = fan_bounds(dy, sqrt32(torch.clamp(r2, min=0.0)), n_sides)
+        return (dx >= xlo) & (dx <= xhi)
+    return pred
+
+
+def circle_strip(dx, dy, r2):
+    """Strip predicate of the circle: dx*dx <= fma(-dy, dy, r2)."""
+    return dx * dx <= fma32(-dy, dy, r2)
+
+
+def _fan_cover(wx, wy, x, y, r2, n_sides: int, chunk: int = 16):
+    """(n, S, S) bool coverage of fans (n, E) on every row: the row
+    bounds made absolute (xlo + x, xhi + x, rounded) against the pixel
+    columns; dead entities (r2 < 0) cover nothing."""
+    n, S = wx.shape
+    acc = torch.zeros((n, S, S), dtype=torch.bool, device=wx.device)
+    for e0 in range(0, x.shape[1], chunk):
+        sl = slice(e0, e0 + chunk)
+        r = sqrt32(torch.clamp(r2[:, sl], min=0.0))[..., None]
+        xlo, xhi = fan_bounds(wy[:, None, :] - y[:, sl, None], r, n_sides)
+        xlo = torch.where(r2[:, sl, None] >= 0, xlo, _HUGE)
+        lo = (xlo + x[:, sl, None])[..., None]               # (n, e, S, 1)
+        hi = (xhi + x[:, sl, None])[..., None]
+        col = wx[:, None, None, :]
+        acc |= ((col >= lo) & (col <= hi)).any(1)
+    return acc
 
 
 def section_meta(cfg: EnvConfig):
@@ -90,13 +212,16 @@ def _plane(planes, name: str, axis: int = 0) -> torch.Tensor:
     return planes[PLANE_INDEX[name][axis]]
 
 
-def screen_sections(cfg: EnvConfig, planes) -> dict:
-    """The screen sections of T2's `screen_tab` emission from (feature, N)
-    planes: {name: (N, padded width) f32} in `section_meta` order. Cell rows
-    keep slot order (uncompacted); dead pellets and viruses are parked at
-    1e9, and every dead lane has r2 = -1. params = (cx, cy, half, 1 + highest
-    live own slot, 1 + highest live other slot, 0, 0, 0)."""
-    Cc = cfg.max_cells
+def screen_sections(cfg: EnvConfig, planes, agent: int = 0) -> dict:
+    """The screen sections of agent `agent`'s frames from (feature, N)
+    planes (T2's `screen_tab` emission for one agent, the rows of
+    `_build_table(agents=A)` for more): {name: (N, padded width) f32} in
+    `section_meta` order. "m" rows are the agent's cells, "o" rows every
+    other player's in pid order; cell rows keep slot order (uncompacted);
+    dead pellets and viruses are parked at 1e9, and every dead lane has
+    r2 = -1. params = (cx, cy, half, 1 + highest live own slot, 1 +
+    highest live other slot, 0, 0, 0)."""
+    Cc, P = cfg.max_cells, cfg.num_players
     N = planes[0].shape[-1]
     dev = planes[0].device
     f32 = torch.float32
@@ -111,9 +236,11 @@ def screen_sections(cfg: EnvConfig, planes) -> dict:
         slot = torch.arange(1, alive.shape[1] + 1, device=dev)
         return torch.where(alive, slot, 0).amax(1).to(f32)
 
-    cen = centroid_of(torch.stack([cx_all[:, :Cc], cy_all[:, :Cc]], -1),
-                      cmass[:, :Cc], calive[:, :Cc])
-    pmass = torch.where(calive[:, :Cc], cmass[:, :Cc], 0).sum(
+    own = torch.zeros(P * Cc, dtype=torch.bool, device=dev)
+    own[agent * Cc:(agent + 1) * Cc] = True
+    cen = frame_centroid(torch.stack([cx_all[:, own], cy_all[:, own]], -1),
+                         cmass[:, own], calive[:, own], cfg.num_agents)
+    pmass = torch.where(calive[:, own], cmass[:, own], 0).sum(
         -1, dtype=torch.int32).to(f32)
     z = torch.clamp(fma32(pmass, float(_F32(0.1)), 100.0), 100.0, 900.0)
     cx, cy, half = cen[:, 0], cen[:, 1], z * float(_F32(_TAN_HALF_FOV))
@@ -128,19 +255,20 @@ def screen_sections(cfg: EnvConfig, planes) -> dict:
         fx=_plane(planes, "food_pos", 0).T, fy=_plane(planes, "food_pos", 1).T,
         fr2=torch.where(_plane(planes, "food_alive").T, float(_F32(rf * rf)),
                         -1.0),
-        mx=cx_all[:, :Cc], my=cy_all[:, :Cc], mr2=cr2[:, :Cc],
+        mx=cx_all[:, own], my=cy_all[:, own], mr2=cr2[:, own],
         vx=torch.where(valive, _plane(planes, "virus_pos", 0).T, _PARK),
         vy=torch.where(valive, _plane(planes, "virus_pos", 1).T, _PARK),
         vr2=torch.where(valive, vrad * vrad, -1.0))
-    if cfg.num_players > 1:
-        vals.update(ox=cx_all[:, Cc:], oy=cy_all[:, Cc:], or2=cr2[:, Cc:])
-        ocnt = top(calive[:, Cc:])
+    if P > 1:
+        vals.update(ox=cx_all[:, ~own], oy=cy_all[:, ~own],
+                    or2=cr2[:, ~own])
+        ocnt = top(calive[:, ~own])
     else:
         zero = torch.zeros((N, 1), dtype=f32, device=dev)
         vals.update(ox=zero, oy=zero, or2=zero)
         ocnt = zero[:, 0]
     zero = torch.zeros_like(cx)
-    vals["params"] = torch.stack([cx, cy, half, top(calive[:, :Cc]), ocnt,
+    vals["params"] = torch.stack([cx, cy, half, top(calive[:, own]), ocnt,
                                   zero, zero, zero], 1)
     out = {}
     for name, w, pw, fill in section_meta(cfg):
@@ -150,36 +278,12 @@ def screen_sections(cfg: EnvConfig, planes) -> dict:
     return out
 
 
-def _strip_cover(wx, wy, x, y, r2, K: int) -> torch.Tensor:
-    """(n, S, S) bool coverage of entities (n, E) whose rows lie in a window
-    of K + 2 rows from one row below floor(y - r) (>= 1 row of slack at both
-    ends, as the TPU kernel's strips): the direct test on those rows only."""
-    n, S = wx.shape
-    R = K + 2
-    pitch = (wy[:, 1] - wy[:, 0])[:, None]
-    r = torch.sqrt(torch.clamp(r2, min=0.0))
-    base = torch.floor((y - r - wy[:, :1]) / pitch) - 1.0
-    base = torch.clamp(base, -R, S).to(torch.int64)           # dead -> off
-    rows = base[..., None] + torch.arange(R, device=wx.device)  # (n, E, R)
-    ok = (rows >= 0) & (rows < S)
-    rows = rows.clamp(0, S - 1)
-    dy = torch.gather(wy, 1, rows.reshape(n, -1)).reshape(rows.shape) \
-        - y[..., None]
-    lim = fma32(-dy, dy, r2[..., None])                         # (n, E, R)
-    dx = wx[:, None, :] - x[..., None]                          # (n, E, S)
-    cov = ((dx * dx)[:, :, None, :] <= lim[..., None]) & ok[..., None]
-    acc = torch.zeros((n, S, S), dtype=torch.int32, device=wx.device)
-    nidx = torch.arange(n, device=wx.device)[:, None, None].expand_as(rows)
-    acc.index_put_((nidx, rows), cov.to(torch.int32), accumulate=True)
-    return acc > 0
-
-
 def rasterize_plain(cfg: EnvConfig, S: int, secs: dict, packed=None,
-                    chunk: int = 256) -> torch.Tensor:
+                    chunk: int = 256, poly: bool = False) -> torch.Tensor:
     """(N, S, S) int32 packed pixels (`_packed_palette`), or uint8 class
     ids when `packed` is None, of screen sections (the plain version of the
-    TPU kernel in circle mode, draw order grid < pellet < food < main <
-    other < virus)."""
+    TPU kernel in circle mode, or in `poly` mode the fans of the module
+    docstring; draw order grid < pellet < food < main < other < virus)."""
     N = secs["params"].shape[0]
     dev = secs["params"].device
     Kp, Kf, Kv = _section_Ks(cfg, S)
@@ -208,13 +312,19 @@ def rasterize_plain(cfg: EnvConfig, S: int, secs: dict, packed=None,
         grid = ((on_v[:, None, :] | on_h[:, :, None]) & in_x[:, None, :]
                 & in_y[:, :, None])
         cls = grid.to(torch.uint8)
-        for pre, K, cid in (("p", Kp, 2), ("f", Kf, 3)):
-            cls[_strip_cover(wxs, wys, sec[pre + "x"], sec[pre + "y"],
-                             sec[pre + "r2"], K)] = cid
-        cls[cover(wxc, wyc, sec["mx"], sec["my"], sec["mr2"])] = 4
-        if n_other:
-            cls[cover(wxc, wyc, sec["ox"], sec["oy"], sec["or2"])] = 5
-        cls[_strip_cover(wxs, wys, sec["vx"], sec["vy"], sec["vr2"], Kv)] = 6
+        for pre, K, cid, sides in (("p", Kp, 2, SIDES_PELLET),
+                                   ("f", Kf, 3, SIDES_FOOD)):
+            cls[strip_cover(wxs, wys, sec[pre + "x"], sec[pre + "y"],
+                            sec[pre + "r2"], K,
+                            fan_strip(sides) if poly else circle_strip)] = cid
+        for pre, cid in (("m", 4), ("o", 5)):
+            if pre == "o" and not n_other:
+                continue
+            x, y, r2 = sec[pre + "x"], sec[pre + "y"], sec[pre + "r2"]
+            cls[_fan_cover(wxs, wys, x, y, r2, SIDES_CELL) if poly
+                else cover(wxc, wyc, x, y, r2)] = cid
+        cls[strip_cover(wxs, wys, sec["vx"], sec["vy"], sec["vr2"], Kv,
+                        circle_strip)] = 6
         if packed is not None:
             tab = torch.tensor(packed, dtype=torch.int32, device=dev)
             cls = tab[cls.long()]
@@ -224,15 +334,19 @@ def rasterize_plain(cfg: EnvConfig, S: int, secs: dict, packed=None,
 
 def frame_plain(cfg: EnvConfig, ocfg: ScreenObsConfig, planes,
                 out: torch.Tensor | None = None) -> torch.Tensor:
-    """(N, 1, S, S, 3|4) uint8 frames of the planes on any device: the
-    plain version of K3 (screen_sections, then rasterize_plain)."""
+    """(N, A, S, S, 3|4) uint8 frames of the planes on any device, one per
+    agent: the plain version of K3 (screen_sections for each agent, then
+    rasterize_plain, in `poly` mode for polygon configurations)."""
     global plain_calls
     plain_calls += 1
-    check_circle_mode(ocfg)
+    poly = _check_screen(cfg, ocfg)
     S = ocfg.screen_len
-    packed = rasterize_plain(cfg, S, screen_sections(cfg, planes),
-                             _packed_palette(ocfg.agent_view))
-    frame = packed.view(torch.uint8).reshape(-1, 1, S, S, 4)
+    packed = _packed_palette(ocfg.agent_view)
+    px = torch.stack([
+        rasterize_plain(cfg, S, screen_sections(cfg, planes, a), packed,
+                        poly=poly)
+        for a in range(cfg.num_agents)], 1)
+    frame = px.view(torch.uint8).reshape(px.shape + (4,))
     if not ocfg.agent_view:
         frame = frame[..., :3]
     if out is None:
@@ -240,19 +354,71 @@ def frame_plain(cfg: EnvConfig, ocfg: ScreenObsConfig, planes,
     return out.copy_(frame)
 
 
+def class_map_frame(cfg: EnvConfig, ocfg: ScreenObsConfig, planes,
+                    out: torch.Tensor | None = None) -> torch.Tensor:
+    """(N, A, S, S, 3|4) uint8 frames of the planes through the GameState
+    route (obs/screen.py::screen_frame, counted in its class_map_calls) on
+    the planes' device: the route of polygon configurations that K3 does
+    not take."""
+    N = check_planes(cfg, planes)
+    state = from_kernel_arrays(zero_state(cfg, N, planes[0].device), planes)
+    frame = screen_frame(cfg, ocfg, state)
+    if out is None:
+        return frame
+    return out.copy_(frame)
+
+
+def _check_screen(cfg: EnvConfig, ocfg: ScreenObsConfig) -> bool:
+    """Whether K3 and its plain version take this configuration, and in
+    `poly` mode; raises for a polygon configuration they do not take."""
+    check_config(ocfg)
+    if ocfg.polygon_edges and not supports_polygon(ocfg):
+        raise NotImplementedError(
+            "the screen kernel draws polygon frames with polygon_virus="
+            f"'circle' and screen_len <= {MAX_POLY_SCREEN} only; this "
+            "configuration goes through obs/screen.py::screen_frame "
+            "(class_map_frame)")
+    return ocfg.polygon_edges
+
+
+class FanLines(ctypes.Structure):
+    """struct FanLines in csrc/screen.cu: the fan_lines of one n-gon,
+    rights then lefts then flats (b only)."""
+    _fields_ = [("nr", ctypes.c_int), ("nl", ctypes.c_int),
+                ("nf", ctypes.c_int), ("c2", ctypes.c_float),
+                ("inv_a", ctypes.c_float * MAX_LINES),
+                ("b", ctypes.c_float * MAX_LINES)]
+
+
 class ScreenParams(ctypes.Structure):
     """struct ScreenParams in csrc/screen.cu."""
     _fields_ = ([("S", ctypes.c_int), ("C", ctypes.c_int),
+                 ("A", ctypes.c_int), ("poly", ctypes.c_int),
                  ("palette", ctypes.c_uint32 * 8)]
                 + [(n, ctypes.c_float) for n in (
                     "rc", "tan_half", "lo", "hi_x", "hi_y", "pr2", "fr2")]
-                + [("xs", ctypes.c_float * 8), ("ys", ctypes.c_float * 8)])
+                + [("xs", ctypes.c_float * 8), ("ys", ctypes.c_float * 8),
+                   ("fan", FanLines * 3)])
+
+
+def _fan_struct(n_sides: int) -> FanLines:
+    rights, lefts, flats, c2 = fan_lines(n_sides)
+    f = FanLines()
+    f.nr, f.nl, f.nf, f.c2 = len(rights), len(lefts), len(flats), c2
+    for k, (ia, b) in enumerate(rights + lefts):
+        f.inv_a[k], f.b[k] = ia, b
+    for k, b in enumerate(flats):
+        f.b[len(rights) + len(lefts) + k] = b
+    return f
 
 
 def screen_params(cfg: EnvConfig, ocfg: ScreenObsConfig) -> ScreenParams:
     S = ocfg.screen_len
     q = ScreenParams()
     q.S, q.C = S, 4 if ocfg.agent_view else 3
+    q.A, q.poly = cfg.num_agents, int(_check_screen(cfg, ocfg))
+    for k, sides in enumerate((SIDES_PELLET, SIDES_FOOD, SIDES_CELL)):
+        q.fan[k] = _fan_struct(sides)
     for k, v in enumerate(_packed_palette(ocfg.agent_view)):
         q.palette[k] = v & 0xFFFFFFFF
     rp, rf = _F32(_RAD_PELLET), _F32(_RAD_FOOD)
@@ -268,8 +434,8 @@ def screen_params(cfg: EnvConfig, ocfg: ScreenObsConfig) -> ScreenParams:
     return q
 
 
-def _check_out(out, N: int, S: int, ch: int, dev) -> None:
-    shape = (N, 1, S, S, ch)
+def _check_out(out, N: int, A: int, S: int, ch: int, dev) -> None:
+    shape = (N, A, S, S, ch)
     if (out.device != dev or out.dtype != torch.uint8
             or tuple(out.shape) != shape or not out.is_contiguous()):
         raise ValueError(f"out must be a contiguous uint8 {shape} tensor on "
@@ -278,14 +444,13 @@ def _check_out(out, N: int, S: int, ch: int, dev) -> None:
 
 def fused_screen_frame(cfg: EnvConfig, ocfg: ScreenObsConfig, planes,
                        out: torch.Tensor | None = None) -> torch.Tensor:
-    """(N, 1, S, S, 3|4) uint8 screen frames of kernel-layout planes
-    (ops/fused_tick.py::to_kernel_arrays): K3 for CUDA planes, the plain
-    version for CPU planes. `out`, if given, receives the frames (for
-    instance one step of a stacked multi_step buffer)."""
+    """(N, A, S, S, 3|4) uint8 screen frames, one per agent, of
+    kernel-layout planes (ops/fused_tick.py::to_kernel_arrays): K3 for CUDA
+    planes, the plain version for CPU planes; polygon configurations in
+    `poly` mode (supports_polygon; others raise). `out`, if given, receives
+    the frames (for instance one step of a stacked multi_step buffer)."""
     global launches
-    check_circle_mode(ocfg)
-    if cfg.num_agents != 1:
-        raise NotImplementedError("the screen kernel draws one agent's view")
+    _check_screen(cfg, ocfg)
     if cfg.max_cells != KP.MAX_CELLS or cfg.num_players > KP.MAX_PLAYERS:
         raise NotImplementedError("the screen kernel takes 16 cell slots and "
                                   f"at most {KP.MAX_PLAYERS} players")
@@ -295,14 +460,14 @@ def fused_screen_frame(cfg: EnvConfig, ocfg: ScreenObsConfig, planes,
     dev = planes[0].device
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {dev}")
-    N = check_planes(cfg, planes)
+    N, A = check_planes(cfg, planes), cfg.num_agents
     ch = 4 if ocfg.agent_view else 3
     if out is not None:
-        _check_out(out, N, S, ch, dev)
+        _check_out(out, N, A, S, ch, dev)
     if dev.type == "cpu":
         return frame_plain(cfg, ocfg, planes, out)
     if out is None:
-        out = torch.empty((N, 1, S, S, ch), dtype=torch.uint8, device=dev)
+        out = torch.empty((N, A, S, S, ch), dtype=torch.uint8, device=dev)
     lib = _build.load()
     prm = KP.env_params(cfg, None)
     q = screen_params(cfg, ocfg)

@@ -68,28 +68,34 @@ def from_resident(cfg: EnvConfig, resident: ResidentState) -> GameState:
 
 
 def frame_kernel(ocfg):
-    """(wrapper, per-env frame shape, dtype) of a frame observation: the
-    screen kernel K3 for a ScreenObsConfig, the grid kernel K4 for a
-    GridObsConfig; None for RAM and no observation."""
+    """(wrapper, per-frame shape, dtype) of a frame observation on
+    kernel-layout planes, routed as the JAX package routes it: the grid
+    kernel K4 for a GridObsConfig; for a ScreenObsConfig the screen kernel
+    K3 (circle mode, or `poly` mode for polygon configurations it takes,
+    fused_screen.supports_polygon), else the GameState route
+    (fused_screen.class_map_frame: the wavy virus rim, S > 128); None for
+    RAM and no observation. Each wrapper returns (N, A, ...)."""
     if isinstance(ocfg, GridObsConfig):
         G = ocfg.grid_size
         return (FG.fused_grid_frame, (ocfg.channels_per_frame, G, G),
                 ocfg.torch_dtype)
     if isinstance(ocfg, ScreenObsConfig):
         S = ocfg.screen_len
-        return (FS.fused_screen_frame, (S, S, 4 if ocfg.agent_view else 3),
-                torch.uint8)
+        shape = (S, S, 4 if ocfg.agent_view else 3)
+        if ocfg.polygon_edges and not FS.supports_polygon(ocfg):
+            return FS.class_map_frame, shape, torch.uint8
+        return FS.fused_screen_frame, shape, torch.uint8
     return None
 
 
 def _frame_steps(cfg, raw, actions, k, ocfg, step, stack_obs):
-    """k x (one-step tick, then the frame kernel on the post-step planes).
-    Returns (planes, obs (k, N, 1, 1, ...) or a k-tuple of (N, 1, 1, ...),
+    """k x (one-step tick, then the frame wrapper on the post-step planes).
+    Returns (planes, obs (k, N, 1, A, ...) or a k-tuple of (N, 1, A, ...),
     info (k, N, 2, P)); stacked frames are written into their slice of one
     buffer."""
     frame, shape, dtype = frame_kernel(ocfg)
     N = raw[0].shape[-1]
-    buf = (torch.empty((k, N, 1, 1) + shape, dtype=dtype,
+    buf = (torch.empty((k, N, 1, cfg.num_agents) + shape, dtype=dtype,
                        device=raw[0].device) if stack_obs else None)
     frames, info = [], []
     for t in range(k):
@@ -146,7 +152,8 @@ def fused_env_step(cfg: EnvConfig, states: GameState, actions, ocfg,
     """One env step of a batch through the kernel wrappers: apply actions
     plus ticks_per_step ticks (multi_step_raw with k=1, K1 on CUDA, which
     also writes the RAM frames of a RamObsConfig), the frame of the
-    post-step state (a ScreenObsConfig: fused_screen_frame, K3 on CUDA; a
+    post-step state (`frame_kernel`: a ScreenObsConfig: fused_screen_frame,
+    K3 on CUDA, or class_map_frame for polygon screens K3 does not take; a
     GridObsConfig: fused_grid_frame, K4 on CUDA), then `_finish_step`.
     Returns (states, obs (N, 1, A, ...) or None, rewards (N, A),
     dones (N, A))."""

@@ -205,6 +205,15 @@ def xla_centroid_of(pos, mass, alive):
                                                min=1.0)[..., None]
 
 
+def frame_centroid(pos, mass, alive, agents: int):
+    """The centroid of a screen or grid frame's camera: the slot-order form
+    (`centroid_of`) with one agent, as the tick's section emission forms
+    it; XLA's fma chain (`xla_centroid_of`) with more, as the JAX table
+    build for A > 1 takes it from player_centroid(). csrc/common.cuh
+    frame_camera is the kernels' copy."""
+    return (xla_centroid_of if agents > 1 else centroid_of)(pos, mass, alive)
+
+
 STATE_FIELDS = tuple(f.name for f in dataclasses.fields(GameState))
 
 

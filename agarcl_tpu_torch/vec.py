@@ -7,9 +7,13 @@ for the CPU (backend="torch", device="cpu"); without a CUDA device a card
 run raises.
 
 - backend="cuda" runs the hand-written kernels: K1, the multi-step tick
-  of rosters up to 9 players with bots (ops/fused_tick.py), K2, the RAM frame (ops/fused_obs.py), K3, the
-  screen frame (ops/fused_screen.py), and K4, the grid frame
-  (ops/fused_grid.py). RAM and no observations run as one K1 call per
+  of rosters up to 9 players with bots (ops/fused_tick.py), K2, the RAM
+  frame (ops/fused_obs.py), K3, the screen frame in circle and polygon
+  mode (ops/fused_screen.py), and K4, the grid frame (ops/fused_grid.py),
+  K3 and K4 drawing one frame per (env, agent). Polygon screens that K3
+  does not take (polygon_virus="wavy", or screen_len > 128) go through
+  obs/screen.py::screen_frame on the card, as the JAX package sends them
+  through its XLA class map. RAM and no observations run as one K1 call per
   multi_step on resident (feature, N) planes. Screen and grid observations
   run k x (K1 with k=1, then K3 or K4) on planes converted once per call;
   with auto_reset, respawn_main_during_obs or mode 0's respawn every
@@ -17,7 +21,8 @@ run raises.
   (ops/fused_step.py::fused_env_step; RAM frames from K1 itself).
   Nothing falls back to the CPU or to the plain version.
 - backend="torch" runs the plain engine (engine_tick) and the plain frames
-  (obs/ram.py::ram_frame; ops/fused_screen.py::frame_plain;
+  (obs/ram.py::ram_frame; ops/fused_screen.py::frame_plain, or
+  obs/screen.py::screen_frame for the polygon screens K3 does not take;
   ops/fused_grid.py::frame_plain) on any device.
 
 Shapes follow the JAX package: reset obs (N, A, R), (N, A, S, S, C) or
@@ -36,7 +41,8 @@ from agarcl_tpu_torch.engine.tick import check_supported
 from agarcl_tpu_torch.env import env_reset, env_step, reset_done, reset_seeds
 from agarcl_tpu_torch.obs.grid import GridObsConfig
 from agarcl_tpu_torch.obs.ram import RamObsConfig, ram_frame
-from agarcl_tpu_torch.obs.screen import ScreenObsConfig, check_circle_mode
+from agarcl_tpu_torch.obs.screen import (ScreenObsConfig, check_config,
+                                         screen_frame)
 from agarcl_tpu_torch.ops import fused_obs, fused_step
 from agarcl_tpu_torch.ops import fused_grid as FG
 from agarcl_tpu_torch.ops import fused_screen as FS
@@ -66,7 +72,7 @@ class VecEnv:
             self.ocfg = obs_config or RamObsConfig()
         elif obs_type == "screen":
             self.ocfg = obs_config or ScreenObsConfig()
-            check_circle_mode(self.ocfg)
+            check_config(self.ocfg)
         elif obs_type == "grid":
             self.ocfg = obs_config or GridObsConfig()
             self.ocfg.torch_dtype                 # validates out_dtype
@@ -82,9 +88,6 @@ class VecEnv:
                 raise NotImplementedError(
                     "the cuda backend runs the tick kernel, which this "
                     "configuration does not fit")
-            if frames and cfg.num_agents != 1:
-                raise NotImplementedError(
-                    "the screen and grid kernels draw one agent's view")
             if frames and self.ocfg.num_frames != 1:
                 raise NotImplementedError(
                     "the tick kernel runs whole steps: num_frames > 1 is "
@@ -105,12 +108,14 @@ class VecEnv:
                 return fused_obs.fused_ram_obs(self.cfg, self.ocfg,
                                                FT.to_kernel_arrays(states))
             return ram_frame(self.cfg, self.ocfg, states)
-        if self.obs_type == "screen":
-            frame = FS.fused_screen_frame if cuda else FS.frame_plain
-            return frame(self.cfg, self.ocfg, FT.to_kernel_arrays(states))
-        if self.obs_type == "grid":
-            frame = FG.fused_grid_frame if cuda else FG.frame_plain
-            return frame(self.cfg, self.ocfg, FT.to_kernel_arrays(states))
+        if self.obs_type in ("screen", "grid"):
+            route = fused_step.frame_kernel(self.ocfg)[0]
+            if route is FS.class_map_frame:
+                return screen_frame(self.cfg, self.ocfg, states)
+            if not cuda:
+                route = (FS.frame_plain if self.obs_type == "screen"
+                         else FG.frame_plain)
+            return route(self.cfg, self.ocfg, FT.to_kernel_arrays(states))
         return None
 
     def reset(self, seed: int = 0):

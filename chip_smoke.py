@@ -10,7 +10,8 @@ screen path (the task suite's 128 x 128 agent-view screen every step;
 reset, multi_step(k=10)) and the grid path (bench.py --obs grid: a 64 x 64
 int16 grid of 8 channels every step; reset, multi_step(k=10)); then the
 task suite's duel (mode 10: one agent against an AggressiveShy bot) on the
-screen path, its RAM path and mode 0 with bots. Phases, one line each:
+screen path, its RAM path and mode 0 with bots; then polygon screens and
+two agents' frames. Phases, one line each:
 
   1. toolchain: GPU name and power limit, torch and CUDA versions, nvcc,
      kernel build time;
@@ -66,7 +67,25 @@ screen path, its RAM path and mode 0 with bots. Phases, one line each:
      backend; K2 at 2 players against ram_frame;
  15. times: duel screen-path env-steps/s for both backends, K1 per k=1
      step at 1, 2 and 9 players against its bound, the single-player RAM
-     path again beside phase 5.
+     path again beside phase 5;
+ 16. K3 in poly mode (ScreenObsConfig(polygon_edges=True,
+     polygon_virus="circle"): 5-gon pellets, 7-gon foods, 50-gon cells)
+     against its plain version on phase 7's states at S=128 agent view and
+     S=84 natural RGB, 0 differing pixels, and the fans differ from
+     circle mode;
+ 17. the polygon screen path (reset + multi_step(k=10): K1 10, K3 11,
+     plain 0, the GameState route 0; equal to the torch backend) in the
+     bench.py game and the duel (mode 10); the wavy virus rim at 1024 envs
+     through obs/screen.py::screen_frame on the card (its class_map_calls
+     counter 3, K3 0, plain 0; equal to the torch backend); mode 0 with 2
+     agents and 1 bot on the screen (128 x 128 agent view) and the grid
+     (64 x 64 int16) through the per-step composition: K3 and K4 once per
+     step over N*A frames, reset frames equal to the plain version's, the
+     steps equal to the torch backend's;
+ 18. times: polygon screen-path env-steps/s for both backends, K3 poly
+     per frame against its bound and against circle mode on the same
+     state, the wavy route per step, K3 and K4 per step at 2 agents
+     against their bounds.
 
 Then a JSON line describing each kernel, the GPU line and, last, the
 device JSON line.
@@ -77,6 +96,7 @@ exits non-zero before printing any result; it never falls back to the CPU.
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -235,49 +255,62 @@ def _ram_work(cfg, ocfg, n: int):
 
 
 def _screen_work(cfg, ocfg, planes):
-    """Bytes and f32 operations of one K3 frame on these planes: the cell,
-    pellet, food and virus planes read once and the frame written once;
-    per env 22 operations per pixel row or column for the pixel-centre
-    tables and grid flags, one per pixel for the grid, and 5 per pixel test
-    over each live entity's bounding box (what this state's entities
-    need)."""
+    """Bytes and f32 operations of one K3 call on these planes: the cell,
+    pellet, food and virus planes read once and the frames (one per agent)
+    written once; per frame 22 operations per pixel row or column for the
+    pixel-centre tables and grid flags, one per pixel for the grid, and per
+    live entity 5 per pixel test over its bounding box (3 for a fan: a
+    subtraction and two compares), plus 4 per half-plane line in each row
+    of a fan's box (what this state's entities need)."""
+    from agarcl_tpu_torch.obs import screen as TS
     from agarcl_tpu_torch.ops import fused_screen as FS
-    n = planes[0].shape[-1]
+    n, A = planes[0].shape[-1], cfg.num_agents
     S, ch = ocfg.screen_len, 4 if ocfg.agent_view else 3
+    poly = ocfg.polygon_edges
     read = (cfg.num_players * cfg.max_cells * 13 + 4 * cfg.pellet_capacity
             + 9 * cfg.food_capacity + 13 * cfg.virus_capacity)
-    nbytes = n * (read + S * S * ch)
-    sec = FS.screen_sections(cfg, planes)
-    half = sec["params"][:, 2:3]
-    pitch = 2.0 * half / S
-    tests = torch.zeros((), dtype=torch.float64, device=half.device)
-    for c in ("p", "f", "m", "o", "v"):
-        r2 = sec[c + "r2"]
-        live = r2 >= 0
-        r = torch.sqrt(r2.clamp(min=0))
-        cam = sec["params"][:, 0:2]
-        side = []
-        for ax, j in (("x", 0), ("y", 1)):
-            w0 = cam[:, j:j + 1] - half + pitch / 2
-            lo = torch.ceil((sec[c + ax] - r - w0) / pitch).clamp(0, S)
-            hi = torch.floor((sec[c + ax] + r - w0) / pitch).clamp(-1, S - 1)
-            side.append((hi - lo + 1).clamp(min=0))
-        tests += (side[0] * side[1] * live).double().sum()
-    ops = n * (22 * S + S * S) + 5 * tests.item()
+    nbytes = n * (read + A * S * S * ch)
+    sides = dict(p=TS.SIDES_PELLET, f=TS.SIDES_FOOD, m=TS.SIDES_CELL,
+                 o=TS.SIDES_CELL)
+    ops = float(n * A * (22 * S + S * S))
+    for a in range(A):
+        sec = FS.screen_sections(cfg, planes, a)
+        half = sec["params"][:, 2:3]
+        pitch = 2.0 * half / S
+        for c in ("p", "f", "m", "o", "v"):
+            r2 = sec[c + "r2"]
+            live = r2 >= 0
+            r = torch.sqrt(r2.clamp(min=0))
+            cam = sec["params"][:, 0:2]
+            side = []
+            for ax, j in (("x", 0), ("y", 1)):
+                w0 = cam[:, j:j + 1] - half + pitch / 2
+                lo = torch.ceil((sec[c + ax] - r - w0) / pitch).clamp(0, S)
+                hi = torch.floor((sec[c + ax] + r - w0) / pitch).clamp(
+                    -1, S - 1)
+                side.append((hi - lo + 1).clamp(min=0))
+            tests = (side[0] * side[1] * live).double().sum().item()
+            fan = poly and c != "v"
+            ops += (3 if fan else 5) * tests
+            if fan:
+                rows = (side[1] * live).double().sum().item()
+                ops += 4 * sides[c] * rows
     return nbytes, ops
 
 
 def _grid_work(cfg, ocfg, n: int):
-    """Bytes and f32 operations of one K4 frame: the cell, pellet and virus
-    planes it reads once and the frame written once; 10 operations per
-    entity bin and 4 per output pixel (a lower bound)."""
-    G, C = ocfg.grid_size, ocfg.channels_per_frame
+    """Bytes and f32 operations of one K4 call: the cell, pellet and virus
+    planes it reads once and the frames (one per agent) written once; per
+    frame 10 operations per entity bin and 4 per output pixel (a lower
+    bound)."""
+    G, C, A = ocfg.grid_size, ocfg.channels_per_frame, cfg.num_agents
     elem = torch.empty((), dtype=ocfg.torch_dtype).element_size()
     read = (cfg.num_players * cfg.max_cells * 13 + 4 * cfg.pellet_capacity
             + 13 * cfg.virus_capacity)
     ents = cfg.pellet_capacity + cfg.virus_capacity + (
         cfg.num_players * cfg.max_cells)
-    return n * (read + C * G * G * elem), n * (10 * ents + 4 * G * G)
+    return (n * (read + A * C * G * G * elem),
+            n * A * (10 * ents + 4 * G * G))
 
 
 def _grid_cases(cfg, duel, played, heavy):
@@ -372,6 +405,13 @@ def _ptxas_summary(log: str) -> str:
                     cap = name.split("multi_step_kernelILi")[-1]
                     name = (f"{short}<{cap.split('E')[0]}>"
                             if short == "multi_step_kernel" else short)
+                    flags = re.findall(r"Lb([01])E", line)
+                    if short == "screen_kernel":
+                        name += "<{},{}>".format(
+                            "poly" if flags[0] == "1" else "circle",
+                            "agents" if flags[1] == "1" else "one")
+                    elif short == "grid_kernel":
+                        name += "<agents>" if flags[0] == "1" else "<one>"
         elif "Used" in line and name:
             out.append(f"{name}: {line.split(':', 1)[1].strip()}")
             name = None
@@ -402,6 +442,7 @@ DUEL_TASK = dict(num_agents=1, ticks_per_step=4, arena_size=350,
                  num_pellets=500, num_viruses=0, num_bots=1,
                  reward_type=True)       # bench/tasks_configs/mode_7..10.json
 N_ROSTER = 2048                          # envs of the mode-0 rosters
+N_WAVY = 1024                            # envs of the wavy route (memory)
 
 
 def _kernel_modules():
@@ -413,8 +454,10 @@ def _kernel_modules():
 
 
 def _zero_counts() -> None:
+    from agarcl_tpu_torch.obs import screen as TS
     for m in _kernel_modules():
         m.launches = m.plain_calls = 0
+    TS.class_map_calls = 0
 
 
 def _plain_count() -> int:
@@ -501,10 +544,13 @@ def _phase13(dev, ocfg) -> float:
     return err
 
 
-def _duel_screen(cfg, dev, acts, scr, label):
-    """Phase 14's screen path in one duel mode: reset + multi_step(k=10)
-    on the card (counts from zero), then the torch backend from the same
-    state. Returns (K1 launches, plain seconds, the card's VecEnv)."""
+def _screen_path(cfg, dev, acts, scr, label, phase="14 duel screen path"):
+    """A screen path: reset + multi_step(k=10) on the card (counts from
+    zero; K3 in poly mode for a polygon `scr`, never the GameState route),
+    then the torch backend from the same state; with a bot, the bot must be
+    drawn. Returns (K1 launches, K3 launches, plain seconds, the card's
+    VecEnv)."""
+    from agarcl_tpu_torch.obs import screen as TS
     from agarcl_tpu_torch.vec import VecEnv
     FT, _, FS, _ = _kernel_modules()
     max_bad = int(MAX_DIVERGED_SHARE * N_ENVS)
@@ -516,15 +562,19 @@ def _duel_screen(cfg, dev, acts, scr, label):
     st, sobs, srew, sdone = senv.multi_step(st0, acts, K_SCREEN)
     torch.cuda.synchronize(dev)
     k1, k3, plain = FT.launches, FS.launches, _plain_count()
-    _check(k1 == K_SCREEN and k3 == K_SCREEN + 1 and plain == 0,
+    routed = TS.class_map_calls
+    _check(k1 == K_SCREEN and k3 == K_SCREEN + 1 and plain == 0
+           and routed == 0,
            f"{label} screen path launches K1 {K_SCREEN}x, K3 "
-           f"{K_SCREEN + 1}x, plain 0x (K1 {k1}, K3 {k3}, plain {plain})")
+           f"{K_SCREEN + 1}x, plain 0x, class map 0x (K1 {k1}, K3 {k3}, "
+           f"plain {plain}, class map {routed})")
     _check(tuple(sobs.shape) == (K_SCREEN, N_ENVS, 1, 1, S_SCREEN, S_SCREEN,
                                  4) and sobs.dtype == torch.uint8,
            f"{label} screen obs shape")
     _check(bool(torch.isfinite(srew).all()), f"{label} finite rewards")
     drawn = int((sobs[-1, :, 0, 0, :, :, 1] == 255).flatten(1).any(1).sum())
-    _check(drawn > 0, f"{label}: the bot drawn (G 255) in some frame")
+    _check(drawn > 0 or cfg.num_players == 1,
+           f"{label}: the bot drawn (G 255) in some frame")
     torch.cuda.synchronize(dev)
     t0 = time.perf_counter()
     pst, pobs, prew, pdone = penv.multi_step(st0, acts, K_SCREEN)
@@ -541,14 +591,15 @@ def _duel_screen(cfg, dev, acts, scr, label):
            f"{label} screen rewards within 1e-5 ({rew_err}), dones equal")
     bad_px = int((sobs[:, same] != pobs[:, same]).any(-1).sum())
     _check(bad_px == 0, f"{label} screen frames equal ({bad_px} pixels)")
-    print(f"[14 duel screen path] {label}, reset + multi_step(k={K_SCREEN}) "
-          f"at {N_ENVS} envs, S={S_SCREEN} agent view: K1 launches {k1}, K3 "
-          f"launches {k3}, plain calls {plain}; the bot drawn in {drawn} "
-          f"last frames; against the torch backend {n_div} envs diverge, in "
-          f"the rest max reward err {rew_err:.3g}, dones equal "
-          f"({int(sdone.sum())} done agent-steps), 0 pixels differ",
-          flush=True)
-    return k1, t_plain, senv
+    mode = "polygon fans" if scr.polygon_edges else "circles"
+    print(f"[{phase}] {label}, reset + multi_step(k={K_SCREEN}) at {N_ENVS} "
+          f"envs, S={S_SCREEN} agent view, {mode}: K1 launches {k1}, K3 "
+          f"launches {k3}, plain calls {plain}, class map calls {routed}; "
+          f"the bot drawn in {drawn} last frames; against the torch backend "
+          f"{n_div} envs diverge, in the rest max reward err {rew_err:.3g}, "
+          f"dones equal ({int(sdone.sum())} done agent-steps), 0 pixels "
+          f"differ", flush=True)
+    return k1, k3, t_plain, senv
 
 
 def _per_step_ram(cfg, n, dev, k, label):
@@ -1076,9 +1127,10 @@ def main() -> int:
     # --- 14. the duel main paths ------------------------------------------
     rosters = _rosters()
     duel10 = rosters[3][1]
-    d_k1, t_dplain, denv = _duel_screen(duel10, dev, acts, scr, "mode 10")
+    d_k1, d_k3, t_dplain, denv = _screen_path(duel10, dev, acts, scr,
+                                              "mode 10")
     for label, c, _ in rosters[:3]:
-        _duel_screen(c, dev, acts, scr, label)
+        _screen_path(c, dev, acts, scr, label)
     renv = VecEnv(duel10, N, "ram")
     _zero_counts()
     s, _ = renv.reset(0)
@@ -1180,6 +1232,161 @@ def main() -> int:
           f"k={k} call ({N * k / t_ram_again:,.0f} env-steps/s; phase 5: "
           f"{1e3 * t_kernel:.2f} ms) | {gpu}", flush=True)
 
+    # --- 16. K3 in poly mode against its plain version --------------------
+    poly = ScreenObsConfig(S_SCREEN, agent_view=True, polygon_edges=True,
+                           polygon_virus="circle")
+    poly84 = ScreenObsConfig(84, agent_view=False, polygon_edges=True,
+                             polygon_virus="circle")
+    for label, c, st in k3_states:
+        planes = FT.to_kernel_arrays(st)
+        for oc in (poly, poly84):
+            got = FS.fused_screen_frame(c, oc, planes)
+            ref = FS.frame_plain(c, oc, planes)
+            bad = int((got != ref).any(-1).sum())
+            k3_err = max(k3_err, (got.int() - ref.int()).abs().max().item())
+            circle = FS.fused_screen_frame(c, ScreenObsConfig(
+                oc.screen_len, agent_view=oc.agent_view), planes)
+            fans = int((circle != ref).any(-1).sum())
+            _check(bad == 0, f"K3 poly vs plain, {label}, S={oc.screen_len}"
+                   f": {bad} pixels differ")
+            _check(fans > 0, f"K3 poly, {label}: the fans differ from the "
+                   "circles")
+            print(f"[16 K3 poly] {label}, {N} envs, S={oc.screen_len} "
+                  f"{'agent view' if oc.agent_view else 'natural RGB'}: 0 "
+                  f"of {N * oc.screen_len ** 2} pixels differ from the "
+                  f"plain frame; {fans} pixels differ from circle mode",
+                  flush=True)
+    del got, ref, circle, planes
+
+    # --- 17. the polygon and two-agent paths ------------------------------
+    # the polygon screen main path: K1 and K3 (poly), nothing else
+    p_k1, p_k3, t_pplain, penv = _screen_path(
+        cfg, dev, acts, poly, "bench.py game", "17 polygon screen path")
+    pd_k1, pd_k3, _, _ = _screen_path(duel10, dev, acts, poly, "mode 10",
+                                      "17 polygon screen path")
+    # the wavy virus rim: obs/screen.py::screen_frame on the card
+    from agarcl_tpu_torch.obs import screen as TS
+    wavy = ScreenObsConfig(S_SCREEN, agent_view=True, polygon_edges=True)
+    wenv = VecEnv(cfg, N_WAVY, "screen", obs_config=wavy)
+    wpenv = VecEnv(cfg, N_WAVY, "screen", backend="torch", device=dev,
+                   obs_config=wavy)
+    wacts = acts[:N_WAVY]
+    _zero_counts()
+    ws0, wo0 = wenv.reset(0)
+    ws, wo, wr, wd = wenv.multi_step(ws0, wacts, 2)
+    torch.cuda.synchronize(dev)
+    w_k1, w_k3, w_plain, w_cm = (FT.launches, FS.launches, _plain_count(),
+                                 TS.class_map_calls)
+    _check((w_k1, w_k3, w_plain, w_cm) == (2, 0, 0, 3),
+           f"wavy route: K1 2x, K3 0x, plain 0x, class map 3x (K1 {w_k1}, "
+           f"K3 {w_k3}, plain {w_plain}, class map {w_cm})")
+    _check(tuple(wo.shape) == (2, N_WAVY, 1, 1, S_SCREEN, S_SCREEN, 4),
+           "wavy route obs shape")
+    wps, wpo, wpr, wpd = wpenv.multi_step(ws0, wacts, 2)
+    same = ~_int_mismatch_envs(ws, wps)
+    w_div = int((~same).sum())
+    w_bad = int((wo[:, same] != wpo[:, same]).any(-1).sum())
+    _check(w_div <= int(MAX_DIVERGED_SHARE * N_WAVY) and w_bad == 0
+           and bool(torch.equal(wd[:, same], wpd[:, same])),
+           f"wavy route equals the torch backend ({w_div} envs diverge, "
+           f"{w_bad} pixels differ)")
+    wvir = int((wo[..., 2] == 255).sum())
+    _check(wvir > 0, "wavy route draws viruses")
+    print(f"[17 wavy route] {N_WAVY} envs, S={S_SCREEN} agent view, "
+          f"polygon_virus='wavy', reset + multi_step(k=2): K1 launches "
+          f"{w_k1}, K3 launches {w_k3}, plain calls {w_plain}, class map "
+          f"calls {w_cm}; against the torch backend on the card {w_div} "
+          f"envs diverge, 0 pixels differ; {wvir} virus pixels", flush=True)
+    del wo, wpo, wps, wpd
+    # mode 0 with 2 agents and a bot: one frame per (env, agent)
+    a2 = _random_actions(N, dev, 2)
+    a2_launch = {}
+    a2_planes = None
+    for kind, oc, mod in (("screen", scr, FS), ("grid", gcfg, FG)):
+        env = VecEnv(m0_2a, N, kind, obs_config=oc)
+        pe = VecEnv(m0_2a, N, kind, backend="torch", device=dev,
+                    obs_config=oc)
+        _zero_counts()
+        s0a, o0 = env.reset(0)
+        sa, oa, ra, da = env.multi_step(s0a, a2, 2)
+        torch.cuda.synchronize(dev)
+        launched = (FT.launches, mod.launches, _plain_count())
+        _check(launched == (2, 3, 0), f"2 agents, {kind}: K1 2x, frame "
+               f"kernel 3x (reset + 2 steps), plain 0x {launched}")
+        a2_launch[kind] = mod.launches
+        a2_launch["k1_" + kind] = FT.launches
+        want0 = mod.frame_plain(m0_2a, oc, FT.to_kernel_arrays(s0a))
+        _check(tuple(o0.shape[:2]) == (N, 2) and torch.equal(o0, want0),
+               f"2 agents, {kind}: reset frames (N, 2, ...) equal the "
+               "plain version's")
+        ps, po, pr, pd = pe.multi_step(s0a, a2, 2)
+        same = ~_int_mismatch_envs(sa, ps)
+        a_div = int((~same).sum())
+        a_bad = int((oa[:, same] != po[:, same]).sum())
+        a_rew = (ra[:, same] - pr[:, same]).abs().max().item()
+        _check(a_div <= max_bad and a_bad == 0 and a_rew <= TOL_REWARD
+               and bool(torch.equal(da[:, same], pd[:, same])),
+               f"2 agents, {kind}: equal to the torch backend ({a_div} "
+               f"envs diverge, {a_bad} values differ, reward err {a_rew})")
+        _check(tuple(oa.shape[:4]) == (2, N, 1, 2)
+               and not torch.equal(oa[:, :, :, 0], oa[:, :, :, 1]),
+               f"2 agents, {kind}: two different frames per env")
+        print(f"[17 two agents] mode 0, 2 agents + 1 bot, {kind} "
+              f"{tuple(oa.shape[4:])}, {N} envs, reset + multi_step(k=2) "
+              f"per step: K1 launches {FT.launches}, {kind} kernel launches "
+              f"{mod.launches} over {2 * N} frames each, plain calls 0; "
+              f"reset frames equal the plain version's; against the torch "
+              f"backend {a_div} envs diverge, in the rest 0 values differ, "
+              f"max reward err {a_rew:.3g}", flush=True)
+        a2_planes = FT.to_kernel_arrays(sa)
+        del oa, po, ps, o0, want0
+
+    # --- 18. times --------------------------------------------------------
+    s, _ = penv.reset(0)
+    s, o, rw, _ = penv.multi_step(s, acts, K_SCREEN)             # warm
+    rw.sum().item()
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        for _ in range(4):
+            del o
+            s, o, rw, _ = penv.multi_step(s, acts, K_SCREEN)
+        torch.cuda.synchronize(dev)
+        rw.sum().item()
+        times.append((time.perf_counter() - t0) / 4)
+    del o, s
+    t_poly = statistics.median(times)
+    k3p_ms = _event_ms(lambda: FS.fused_screen_frame(cfg, poly, planes2), 10)
+    k3c_ms = _event_ms(lambda: FS.fused_screen_frame(cfg, scr, planes2), 10)
+    k3p_bound = _bound_ms(*_screen_work(cfg, poly, planes2))
+    k3p_plain_ms = 1e3 * _timed(lambda: FS.frame_plain(cfg, poly, planes2),
+                                dev, 2)
+    wenv.multi_step(ws, wacts, 2)[2].sum().item()                  # warm
+    t_w = _timed(lambda: wenv.multi_step(ws, wacts, 2)[2].sum().item(), dev,
+                 1) / 2
+    k3a_ms = _event_ms(lambda: FS.fused_screen_frame(m0_2a, scr, a2_planes),
+                       10)
+    k3a_bound = _bound_ms(*_screen_work(m0_2a, scr, a2_planes))
+    k4a_ms = _event_ms(lambda: FG.fused_grid_frame(m0_2a, gcfg, a2_planes),
+                       10)
+    k4a_bound = _bound_ms(*_grid_work(m0_2a, gcfg, N))
+    print(f"[18 times] polygon screen path (bench.py game), {N} envs, "
+          f"multi_step(k={K_SCREEN}), S={S_SCREEN}: kernel "
+          f"{N * K_SCREEN / t_poly:,.0f} env-steps/s ({1e3 * t_poly:.2f} "
+          f"ms/call, median of 3 runs x 4 calls); plain torch backend "
+          f"{N * K_SCREEN / t_pplain:,.0f} env-steps/s "
+          f"({1e3 * t_pplain:.2f} ms/call, 1 call: phase 17's); K3 poly "
+          f"{k3p_ms:.3f} ms/frame, bound {k3p_bound[0]:.3f} ms by "
+          f"{k3p_bound[1]}, {100 * k3p_bound[0] / k3p_ms:.1f}% of bound; K3 "
+          f"circle mode on the same state {k3c_ms:.3f} ms/frame; plain poly "
+          f"frame {k3p_plain_ms:.2f} ms; wavy route {1e3 * t_w:.2f} ms per "
+          f"step at {N_WAVY} envs (K1 + class map, host clock); 2 agents "
+          f"(mode 0, {2 * N} frames per call): K3 {k3a_ms:.3f} ms per step, "
+          f"bound {k3a_bound[0]:.3f} ms by {k3a_bound[1]}; K4 G={G_GRID} "
+          f"int16 {k4a_ms:.3f} ms per step, bound {k4a_bound[0]:.3f} ms by "
+          f"{k4a_bound[1]} | {gpu}", flush=True)
+
     k1_bytes, k1_ops = _tick_work(cfg, ocfg, N, k)
     k2_bytes, k2_ops = _ram_work(cfg, ocfg, N)
     k1_bound, k2_bound = _bound_ms(k1_bytes, k1_ops), _bound_ms(k2_bytes,
@@ -1189,11 +1396,16 @@ def main() -> int:
          "source": "agarcl_tpu_torch/csrc/tick.cu",
          "replaces": "agarcl_tpu/ops/fused_tick.py:163",
          "launches": k1_launches + s_k1 + g_k1 + d_k1 + dr_k1 + m8_k1
-         + m2_k1,
+         + m2_k1 + p_k1 + pd_k1 + w_k1 + a2_launch["k1_screen"]
+         + a2_launch["k1_grid"],
          "launches_by_path": {"ram": k1_launches, "screen": s_k1,
                               "grid": g_k1, "duel_screen": d_k1,
                               "duel_ram": dr_k1, "mode0_8bots": m8_k1,
-                              "mode0_2agents": m2_k1},
+                              "mode0_2agents": m2_k1, "poly_screen": p_k1,
+                              "poly_duel_screen": pd_k1,
+                              "wavy_screen": w_k1,
+                              "agents2_screen": a2_launch["k1_screen"],
+                              "agents2_grid": a2_launch["k1_grid"]},
          "step_ms_by_players": step_ms,
          "step_bound_ms_by_players": {P: b[0] for P, b in step_bound.items()},
          "max_abs_err": k1_err,
@@ -1210,16 +1422,26 @@ def main() -> int:
         {"name": "screen_frame", "route": "cuda",
          "source": "agarcl_tpu_torch/csrc/screen.cu",
          "replaces": "agarcl_tpu/ops/fused_screen.py:196",
-         "launches": s_k3, "max_abs_err": k3_err,
+         "launches": s_k3 + d_k3 + p_k3 + pd_k3 + a2_launch["screen"],
+         "launches_by_path": {"screen": s_k3, "duel_screen": d_k3,
+                              "poly_screen": p_k3, "poly_duel_screen": pd_k3,
+                              "agents2_screen": a2_launch["screen"]},
+         "max_abs_err": k3_err,
          "ms": k3_ms, "plain_ms": k3_plain_ms,
          "bound_ms": k3_bound[0], "bound_by": k3_bound[1],
+         "poly_ms": k3p_ms, "poly_circle_ms": k3c_ms,
+         "poly_plain_ms": k3p_plain_ms, "poly_bound_ms": k3p_bound[0],
+         "agents2_ms": k3a_ms, "agents2_bound_ms": k3a_bound[0],
          "library_ms": None},
         {"name": "grid_frame", "route": "cuda",
          "source": "agarcl_tpu_torch/csrc/grid.cu",
          "replaces": "agarcl_tpu/ops/fused_grid.py:107",
-         "launches": g_k4, "max_abs_err": k4_err,
+         "launches": g_k4 + a2_launch["grid"],
+         "launches_by_path": {"grid": g_k4, "agents2_grid": a2_launch["grid"]},
+         "max_abs_err": k4_err,
          "ms": k4_ms, "plain_ms": k4_plain_ms,
          "bound_ms": k4_bound[0], "bound_by": k4_bound[1],
+         "agents2_ms": k4a_ms, "agents2_bound_ms": k4a_bound[0],
          "library_ms": None},
     ]}))
     print(gpu)

@@ -1,8 +1,9 @@
-"""The CUDA sources of K1 (csrc/tick.cu) and K4 (csrc/grid.cu) compiled as
-host C++ (every kernel function is __host__ __device__, and without
-__CUDACC__ the sources build with g++), run env by env with one thread, and
-held against their plain versions on the CPU: exact equality of every state
-plane and every frame value. This checks the kernels' arithmetic and
+"""The CUDA sources of K1 (csrc/tick.cu), K3 (csrc/screen.cu) and K4
+(csrc/grid.cu) compiled as host C++ (every kernel function is __host__
+__device__, and without __CUDACC__ the sources build with g++), run frame
+by frame with one thread, and held against their plain versions on the
+CPU: exact equality of every state plane, every pixel and every frame
+value. This checks the kernels' arithmetic and
 control flow without a card; the card's own check is `python3
 chip_smoke.py`. Skips without g++."""
 
@@ -21,7 +22,9 @@ from agarcl_tpu_torch import EnvConfig
 from agarcl_tpu_torch.env import env_reset, reset_seeds
 from agarcl_tpu_torch.obs.grid import GridObsConfig
 from agarcl_tpu_torch.obs.ram import RamObsConfig
+from agarcl_tpu_torch.obs.screen import ScreenObsConfig
 from agarcl_tpu_torch.ops import fused_grid as FG
+from agarcl_tpu_torch.ops import fused_screen as FS
 from agarcl_tpu_torch.ops import fused_tick as FT
 from agarcl_tpu_torch.ops import params as KP
 from agarcl_tpu_torch.state import zero_state
@@ -31,6 +34,7 @@ CSRC = Path(__file__).resolve().parent.parent / "agarcl_tpu_torch" / "csrc"
 HARNESS = r"""
 #include <vector>
 #include "tick.cu"
+#include "screen.cu"
 #include "grid.cu"
 using namespace agarcl;
 extern "C" void host_multi_step(const EnvParams* p, void* const* planes,
@@ -50,9 +54,33 @@ extern "C" void host_grid(const EnvParams* p, const GridParams* q,
   std::vector<GridEnt> ents(GRID_MAX_ENTS);
   float cam[3];
   int nent;
-  for (int n = 0; n < N; n++)
-    grid_env(*p, *q, s, n, N, cam, &nent, flags.data(), hist.data(),
-             ents.data(), out + (long long)n * q->C * G * G * q->elem, 0, 1);
+  for (int b = 0; b < N * q->A; b++) {
+    uint8_t* o = out + (long long)b * q->C * G * G * q->elem;
+    if (q->A > 1)
+      grid_env<true>(*p, *q, s, b / q->A, b % q->A, N, cam, &nent,
+                     flags.data(), hist.data(), ents.data(), o, 0, 1);
+    else
+      grid_env<false>(*p, *q, s, b, 0, N, cam, &nent, flags.data(),
+                      hist.data(), ents.data(), o, 0, 1);
+  }
+}
+extern "C" void host_screen(const EnvParams* p, const ScreenParams* q,
+                            void* const* planes, uint8_t* out, int N) {
+  const Planes s = planes_from(planes);
+  const int S = q->S;
+  std::vector<float> tab(6 * S);
+  std::vector<uint8_t> flags(2 * S), cls(S * S);
+  float cam[4];
+  for (int b = 0; b < N * q->A; b++) {
+    uint8_t* o = out + (long long)b * S * S * q->C;
+    const int n = b / q->A, a = b % q->A;
+    auto* env = q->poly ? (q->A > 1 ? screen_env<true, true>
+                                    : screen_env<true, false>)
+                        : (q->A > 1 ? screen_env<false, true>
+                                    : screen_env<false, false>);
+    env(*p, *q, s, n, a, N, cam, tab.data(), flags.data(), cls.data(), o, 0,
+        1);
+  }
 }
 """
 CFG = EnvConfig(num_agents=1, ticks_per_step=4, arena_size=200,
@@ -61,6 +89,8 @@ CFG3 = EnvConfig(num_agents=1, ticks_per_step=4, arena_size=200,
                  num_pellets=150, num_viruses=6, reward_type=True, mode=3)
 DUEL = EnvConfig(num_agents=1, ticks_per_step=4, arena_size=200,
                  num_pellets=150, num_viruses=6, mode=7)
+AGENTS2 = EnvConfig(num_agents=2, ticks_per_step=4, arena_size=200,
+                    num_pellets=150, num_viruses=6, num_bots=1, mode=0)
 N = 8
 
 
@@ -80,6 +110,7 @@ def host_lib(tmp_path_factory):
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     lib.host_multi_step.argtypes = [vp, vp, vp, vp, vp, vp, vp, i32, i32]
     lib.host_grid.argtypes = [vp, vp, vp, vp, i32]
+    lib.host_screen.argtypes = [vp, vp, vp, vp, i32]
     return lib
 
 
@@ -235,7 +266,18 @@ def _grid_states():
         f: getattr(heavy, f) for f in ("pellet_key", "virus_pos",
                                        "virus_mass", "virus_alive")})
     return [(CFG, played.replace(virus_pos=vp, virus_mass=vm, cell_mass=cm)),
-            (CFG, heavy), (DUEL, two)]
+            (CFG, heavy), (DUEL, two), (AGENTS2, _two_agents())]
+
+
+def _two_agents():
+    """Two agents and a bot after 3 steps of splits from masses 400-2500:
+    every player's camera on its own cells."""
+    env = VecEnv(AGENTS2, N, "none", backend="torch", device="cpu")
+    s, _ = env.reset(4)
+    cm = s.cell_mass.clone()
+    cm[:, :, 0] = 400 + 300 * torch.arange(3 * N).reshape(N, 3) % 2100
+    s, _, _, _ = env.multi_step(s.replace(cell_mass=cm), _acts(N, 5, 2), 3)
+    return s
 
 
 @pytest.mark.parametrize("grid", [
@@ -243,6 +285,7 @@ def _grid_states():
     GridObsConfig(grid_size=32, out_dtype="int8"),
     GridObsConfig(grid_size=24, out_dtype="int32", observe_cells=False)])
 def test_grid_source_matches_plain(host_lib, grid):
+    frames = []
     for cfg, s in _grid_states():
         planes = FT.to_kernel_arrays(s)
         want = FG.frame_plain(cfg, grid, planes)
@@ -252,5 +295,30 @@ def test_grid_source_matches_plain(host_lib, grid):
                            FT._ptr_array(planes), got.data_ptr(),
                            s.num_envs)
         assert torch.equal(got, want)
-    ch = want[:, 0].int()
+        frames.append(want)
+    ch = frames[2][:, 0].int()
     assert bool((ch[:, -2] != ch[:, -1]).any())          # others drawn
+    assert tuple(want.shape[:2]) == (N, 2)               # one per agent
+    assert not torch.equal(want[:, 0], want[:, 1])
+
+
+@pytest.mark.parametrize("scr", [
+    ScreenObsConfig(48, agent_view=True),
+    ScreenObsConfig(41, agent_view=False, polygon_edges=True,
+                    polygon_virus="circle"),
+    ScreenObsConfig(128, agent_view=True, polygon_edges=True,
+                    polygon_virus="circle")])
+def test_screen_source_matches_plain(host_lib, scr):
+    """K3 (circle mode, poly mode) on played, heavy, two-player and
+    two-agent states against its plain version: every pixel equal."""
+    for cfg, s in _grid_states():
+        planes = FT.to_kernel_arrays(s)
+        want = FS.frame_plain(cfg, scr, planes)
+        got = torch.full_like(want, 77)
+        host_lib.host_screen(ctypes.byref(KP.env_params(cfg, None)),
+                             ctypes.byref(FS.screen_params(cfg, scr)),
+                             FT._ptr_array(planes), got.data_ptr(),
+                             s.num_envs)
+        assert int((got != want).any(-1).sum()) == 0
+    assert tuple(want.shape[:2]) == (N, 2)
+    assert not torch.equal(want[:, 0], want[:, 1])

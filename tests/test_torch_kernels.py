@@ -122,13 +122,23 @@ def test_screen_wrapper_validates_before_building(no_build):
     bad[21] = bad[21][:, :2]                     # cell_alive for 2 envs
     with pytest.raises(ValueError, match="cell_alive"):
         FS.fused_screen_frame(CFG, scr, bad)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError):         # the wavy virus rim
         FS.fused_screen_frame(CFG, ScreenObsConfig(32, polygon_edges=True),
                               planes)
+    with pytest.raises(NotImplementedError):         # poly beyond S=128
+        FS.fused_screen_frame(CFG, ScreenObsConfig(
+            160, polygon_edges=True, polygon_virus="circle"), planes)
+    with pytest.raises(ValueError, match="polygon_virus"):
+        FS.fused_screen_frame(CFG, ScreenObsConfig(
+            32, polygon_edges=True, polygon_virus="square"), planes)
     two = EnvConfig(num_agents=2, arena_size=100, num_pellets=20,
                     num_viruses=2, mode=4)
-    with pytest.raises(NotImplementedError):
-        FS.fused_screen_frame(two, scr, _planes(cfg=two))
+    with pytest.raises(ValueError, match="out"):     # one frame per agent
+        FS.fused_screen_frame(two, scr, _planes(cfg=two),
+                              out=torch.empty(4, 1, 32, 32, 4,
+                                              dtype=torch.uint8))
+    assert tuple(FS.fused_screen_frame(two, scr, _planes(cfg=two)).shape) \
+        == (4, 2, 32, 32, 4)
     with pytest.raises(ValueError, match="screen_len"):
         FS.fused_screen_frame(CFG, ScreenObsConfig(FS.MAX_SCREEN + 1), planes)
     with pytest.raises(ValueError, match="out"):
@@ -158,8 +168,12 @@ def test_grid_wrapper_validates_before_building(no_build):
         FG.fused_grid_frame(CFG, grid, bad)
     two = EnvConfig(num_agents=2, arena_size=100, num_pellets=20,
                     num_viruses=2, mode=4)
-    with pytest.raises(NotImplementedError):
-        FG.fused_grid_frame(two, grid, _planes(cfg=two))
+    with pytest.raises(ValueError, match="out"):     # one frame per agent
+        FG.fused_grid_frame(two, grid, _planes(cfg=two),
+                            out=torch.empty(4, 1, 8, 32, 32,
+                                            dtype=torch.int16))
+    assert tuple(FG.fused_grid_frame(two, grid, _planes(cfg=two)).shape) \
+        == (4, 2, 8, 32, 32)
     with pytest.raises(ValueError, match="grid_size"):
         FG.fused_grid_frame(CFG, GridObsConfig(grid_size=FG.MAX_GRID + 1),
                             planes)
@@ -557,3 +571,49 @@ def test_multi_step_kernel_matches_plain_with_bots(cuda_device, name):
                                    atol=1e-5)
         assert torch.equal(dk[:, keep], dp[:, keep])
     assert int(sp.cells_eaten.sum()) > 0
+
+
+# ----------------------------------------------- polygon screens, agents
+POLY = [ScreenObsConfig(128, agent_view=True, polygon_edges=True,
+                        polygon_virus="circle"),
+        ScreenObsConfig(84, agent_view=False, polygon_edges=True,
+                        polygon_virus="circle")]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("scr", POLY)
+def test_screen_kernel_matches_plain_in_poly_mode(cuda_device, scr):
+    """K3's fans (5-gon pellets, 7-gon foods, 50-gon cells) against the
+    plain version on a heavy-cell and a two-player state: 0 pixels
+    differ."""
+    heavy = _eventful_state(512, cuda_device)
+    for cfg, s in [(CFG, heavy), _two_player_state(heavy)]:
+        planes = FT.to_kernel_arrays(s)
+        before = FS.launches, FS.plain_calls
+        got = FS.fused_screen_frame(cfg, scr, planes)
+        assert (FS.launches, FS.plain_calls) == (before[0] + 1, before[1])
+        want = FS.frame_plain(cfg, scr, planes)
+        assert int((got != want).any(-1).sum()) == 0
+    circle = FS.frame_plain(cfg, ScreenObsConfig(
+        scr.screen_len, agent_view=scr.agent_view), planes)
+    assert int((circle != want).any(-1).sum()) > 0      # the fans differ
+
+
+@pytest.mark.gpu
+def test_frame_kernels_match_plain_at_two_agents(cuda_device):
+    """Two agents and a bot: K3 (circle and poly) and K4 draw one frame per
+    (env, agent), each equal to the plain version's."""
+    cfg = ROSTERS["2agents"]
+    planes = FT.to_kernel_arrays(_crowd_state(cfg, 512, cuda_device))
+    for ocfg, mod, wrapper in (
+            (ScreenObsConfig(128, agent_view=True), FS,
+             FS.fused_screen_frame),
+            (POLY[0], FS, FS.fused_screen_frame),
+            (GridObsConfig(grid_size=64, out_dtype="int16"), FG,
+             FG.fused_grid_frame)):
+        before = mod.launches
+        got = wrapper(cfg, ocfg, planes)
+        assert mod.launches == before + 1 and got.shape[1] == 2
+        want = mod.frame_plain(cfg, ocfg, planes)
+        assert got.shape == want.shape and torch.equal(got, want)
+        assert not torch.equal(got[:, 0], got[:, 1])    # two cameras
