@@ -8,8 +8,9 @@
 //  - the library is built with --fmad=false, so no a*b+c is contracted
 //    except the explicit FMAF sites, which are the sites XLA-CPU fuses
 //    (engine/geometry.py "FMA contract");
-//  - pow, atan, cos and sin are evaluated in double and rounded once
-//    (engine/geometry.py "Transcendentals");
+//  - pow is evaluated in double and rounded once; atan, cos and sin are
+//    glibc's f32 atanf / cosf / sinf, XLA-CPU's own (atan32, cos32, sin32
+//    below; engine/geometry.py "Transcendentals");
 //  - sqrtf and division are IEEE (nvcc's defaults; never --use_fast_math);
 //  - f32 sums over cell slots run in slot order, one add at a time.
 #pragma once
@@ -168,20 +169,6 @@ HD float norm2(float x, float y) { return FMAF(x, x, y * y); }
 HD float clampb(float v, float r, float hi_edge) {
   return fmaxf(0.0f, fmaxf(fminf(v, hi_edge - r), r));
 }
-// Velocity::direction(): atan(dx/dy) with +-pi corrections, (0,0) -> 0
-HD float direction(float dx, float dy) {
-  if (dx == 0.0f && dy == 0.0f) return 0.0f;
-  float ratio;
-  if (dy == 0.0f) ratio = dx > 0.0f ? INFINITY : -INFINITY;
-  else ratio = dx / dy;
-  float ang = float(atan(double(ratio)));
-  if (dx < 0.0f) ang = dy > 0.0f ? ang + PI32 : ang - PI32;
-  return ang;
-}
-HD int floor_mod(int a, int b) {
-  int r = a % b;
-  return (r != 0 && ((r < 0) != (b < 0))) ? r + b : r;
-}
 HD int float_bits(float f) {
 #ifdef __CUDA_ARCH__
   return __float_as_int(f);
@@ -190,6 +177,86 @@ HD int float_bits(float f) {
   std::memcpy(&i, &f, sizeof(i));
   return i;
 #endif
+}
+// glibc's f32 atanf (fdlibm s_atanf.c): f32 operations, none fused
+HD float atan32(float x) {
+  const float hi[4] = {4.6364760399e-01f, 7.8539812565e-01f,
+                       9.8279368877e-01f, 1.5707962513e+00f};
+  const float lo[4] = {5.0121582440e-09f, 3.7748947079e-08f,
+                       3.4473217170e-08f, 7.5497894159e-08f};
+  const int ix = float_bits(x) & 0x7fffffff;
+  if (ix > 0x7f800000) return x + x;
+  if (ix >= 0x4c000000) return x > 0.0f ? hi[3] + lo[3] : -hi[3] - lo[3];
+  int id = -1;
+  float r = x;
+  if (ix < 0x3ee00000) {
+    if (ix < 0x31000000) return x;
+  } else {
+    const float a = fabsf(x);
+    if (ix < 0x3f980000) {
+      if (ix < 0x3f300000) { id = 0; r = (2.0f * a - 1.0f) / (2.0f + a); }
+      else { id = 1; r = (a - 1.0f) / (a + 1.0f); }
+    } else {
+      if (ix < 0x401c0000) { id = 2; r = (a - 1.5f) / (1.0f + 1.5f * a); }
+      else { id = 3; r = -1.0f / a; }
+    }
+  }
+  const float z = r * r, w = z * z;
+  const float s1 = z * (3.3333334327e-01f + w * (1.4285714924e-01f
+      + w * (9.0908870101e-02f + w * (6.6610731184e-02f
+      + w * (4.9768779427e-02f + w * 1.6285819933e-02f)))));
+  const float s2 = w * (-2.0000000298e-01f + w * (-1.1111110449e-01f
+      + w * (-7.6918758452e-02f + w * (-5.8335702866e-02f
+      + w * -3.6531571299e-02f))));
+  if (id < 0) return r - r * (s1 + s2);
+  const float zz = hi[id] - ((r * (s1 + s2) - lo[id]) - r);
+  return x < 0.0f ? -zz : zz;
+}
+// glibc's f32 sinf / cosf (sincosf.h): double argument reduction and
+// polynomial, one rounding; |y| >= 120 (never formed by the game) in double
+HD float sincos32(float y, bool want_cos) {
+  const int top = (float_bits(y) >> 20) & 0x7ff;
+  const double x = double(y);
+  if (top >= 0x42f) return float(want_cos ? cos(x) : sin(x));
+  if (top < 0x398) return want_cos ? 1.0f : y;
+  int n = 0;
+  double xr = x, xs = x;
+  if (top >= 0x3f4) {
+    const double r = x * 0x1.45F306DC9C883p+23;
+    n = (int(r) + 0x800000) >> 24;
+    xr = x - double(n) * 0x1.921FB54442D18p0;
+    const int q = n & 3;
+    xs = (q == 1 || q == 2) ? -xr : xr;
+  }
+  const double x2 = xr * xr;
+  if ((((want_cos ? n ^ 1 : n)) & 1) == 0) {
+    const double x3 = xs * x2;
+    const double s1 = 0x1.1107605230bc4p-7 + x2 * -0x1.994eb3774cf24p-13;
+    const double x7 = x3 * x2;
+    const double s = xs + x3 * -0x1.555545995a603p-3;
+    return float(s + x7 * s1);
+  }
+  const double g = (n & 2) ? -1.0 : 1.0;
+  const double x4 = x2 * x2;
+  const double c2 = g * -0x1.6c087e89a359dp-10 + x2 * (g * 0x1.99343027bf8c3p-16);
+  const double c1 = g + x2 * (g * -0x1.ffffffd0c621cp-2);
+  const double x6 = x4 * x2;
+  const double c = c1 + x4 * (g * 0x1.55553e1068f19p-5);
+  return float(c + x6 * c2);
+}
+// Velocity::direction(): atan(dx/dy) with +-pi corrections, (0,0) -> 0
+HD float direction(float dx, float dy) {
+  if (dx == 0.0f && dy == 0.0f) return 0.0f;
+  float ratio;
+  if (dy == 0.0f) ratio = dx > 0.0f ? INFINITY : -INFINITY;
+  else ratio = dx / dy;
+  float ang = atan32(ratio);
+  if (dx < 0.0f) ang = dy > 0.0f ? ang + PI32 : ang - PI32;
+  return ang;
+}
+HD int floor_mod(int a, int b) {
+  int r = a % b;
+  return (r != 0 && ((r < 0) != (b < 0))) ? r + b : r;
 }
 // pellet key -> decoded position (state.py::decode_pellet_xy)
 HD float pellet_x(const EnvParams& p, int key) {

@@ -9,6 +9,10 @@
 // feed, split, placement, recombine, decay, cross-player eating, food
 // movement with virus feeding, regen), then writes that step's RAM frame
 // for every agent (ram_frame.cuh) and every player's (mass, alive) row.
+// With null action planes and a tick count per step it is the partial-step
+// chain of agarcl_tpu/ops/fused_tick.py::fused_engine_tick (kernel_nosteps):
+// n ticks with no action phase, the one-tick calls between the frames of a
+// step that returns several (ops/fused_step.py).
 // Wrapper and plain version: agarcl_tpu_torch/ops/fused_tick.py.
 //
 // Design: one thread per env, 128-thread blocks (64 blocks at 8192 envs).
@@ -200,20 +204,24 @@ HD void move_cells(const EnvParams& p, Cells& c, float tx, float ty) {
   }
 }
 
-// elastic_collision_between_balls (physics.py::_elastic)
+// elastic_collision_between_balls (physics.py::_elastic) in the form of
+// XLA's velocity outputs (tx_first false) or of its position outputs
+// (tx_first true): the tangential products fuse on (v.y, t.y) or (v.x, t.x)
 HD void elastic(V2& va, V2& vb, int ma, int mb, float dx, float dy,
-                float dist) {
+                float dist, bool tx_first) {
   const float d = fmaxf(dist, 1e-12f);
   const float nx = dx / d, ny = dy / d;
   const float tx = -ny, ty = nx;
   const float dpn1 = FMAF(va.x, nx, va.y * ny);
   const float dpn2 = FMAF(vb.x, nx, vb.y * ny);
-  const float dpt1 = FMAF(va.y, ty, va.x * tx);
-  const float dpt2 = FMAF(vb.y, ty, vb.x * tx);
+  const float dpt1 = tx_first ? FMAF(va.x, tx, va.y * ty)
+                              : FMAF(va.y, ty, va.x * tx);
+  const float dpt2 = tx_first ? FMAF(vb.x, tx, vb.y * ty)
+                              : FMAF(vb.y, ty, vb.x * tx);
   const float m1 = float(ma), m2 = float(mb);
   const float msum = fmaxf(m1 + m2, 1.0f);
   const float v1 = FMAF(dpn1, m1 - m2, (2.0f * m2) * dpn2) / msum;
-  const float v2 = FMAF(2.0f * m1, dpn1, dpn2 * (m2 - m1)) / msum;
+  const float v2 = FMAF(dpn2, m2 - m1, (2.0f * m1) * dpn1) / msum;
   const V2 na = {FMAF(tx, dpt1, nx * v1), FMAF(ty, dpt1, ny * v1)};
   const V2 nb = {FMAF(tx, dpt2, nx * v2), FMAF(ty, dpt2, ny * v2)};
   if (ma <= mb) va = na;
@@ -267,16 +275,12 @@ HD void separate(V2& pa, V2& pb, int ma, int mb, float ra, float rb,
   else { pb.x = pb.x + mx; pb.y = pb.y + my; }
 }
 
-// prevent_overlap (physics.py::_prevent_overlap)
-HD void prevent_overlap(const EnvParams& p, V2& pa, V2& va, V2 sa, int ma,
-                        V2& pb, V2& vb, V2 sb, int mb, float tgx,
-                        float tgy) {
-  const float ra = radius(float(ma)), rb = radius(float(mb));
-  const float dx0 = pb.x - pa.x, dy0 = pb.y - pa.y;
-  const float dist0 = sqrtf(norm2(dx0, dy0));
-  pa = {FMAF(-(va.x + sa.x), p.dt, pa.x), FMAF(-(va.y + sa.y), p.dt, pa.y)};
-  pb = {FMAF(-(vb.x + sb.x), p.dt, pb.x), FMAF(-(vb.y + sb.y), p.dt, pb.y)};
-  elastic(va, vb, ma, mb, dx0, dy0, dist0);
+// the end of prevent_overlap (physics.py::_settle): from the moved-back
+// positions and the new velocities, move forward, the static / separate
+// fallback, the boundary clamp
+HD void settle(const EnvParams& p, V2& pa, V2& va, V2 sa, int ma, V2& pb,
+               V2& vb, V2 sb, int mb, float ra, float rb, float tgx,
+               float tgy) {
   pa = {FMAF(va.x + sa.x, p.dt, pa.x), FMAF(va.y + sa.y, p.dt, pa.y)};
   pb = {FMAF(vb.x + sb.x, p.dt, pb.x), FMAF(vb.y + sb.y, p.dt, pb.y)};
   const float rs = ra + rb;
@@ -289,6 +293,35 @@ HD void prevent_overlap(const EnvParams& p, V2& pa, V2& va, V2 sa, int ma,
   }
   pa = clamp2(p, pa, ra);
   pb = clamp2(p, pb, rb);
+}
+
+HD bool same_bits(V2 a, V2 b) {
+  return float_bits(a.x) == float_bits(b.x) &&
+         float_bits(a.y) == float_bits(b.y);
+}
+
+// prevent_overlap (physics.py::_prevent_overlap): the new velocities are
+// settled from the velocity outputs' elastic form, the new positions from
+// the position outputs' (XLA computes them in two fusions); when the two
+// forms give the same bits, as they mostly do, one settle serves both
+HD void prevent_overlap(const EnvParams& p, V2& pa, V2& va, V2 sa, int ma,
+                        V2& pb, V2& vb, V2 sb, int mb, float tgx,
+                        float tgy) {
+  const float ra = radius(float(ma)), rb = radius(float(mb));
+  const float dx0 = pb.x - pa.x, dy0 = pb.y - pa.y;
+  const float dist0 = sqrtf(norm2(dx0, dy0));
+  pa = {FMAF(-(va.x + sa.x), p.dt, pa.x), FMAF(-(va.y + sa.y), p.dt, pa.y)};
+  pb = {FMAF(-(vb.x + sb.x), p.dt, pb.x), FMAF(-(vb.y + sb.y), p.dt, pb.y)};
+  V2 va_p = va, vb_p = vb;
+  elastic(va, vb, ma, mb, dx0, dy0, dist0, false);
+  elastic(va_p, vb_p, ma, mb, dx0, dy0, dist0, true);
+  if (same_bits(va, va_p) && same_bits(vb, vb_p)) {
+    settle(p, pa, va, sa, ma, pb, vb, sb, mb, ra, rb, tgx, tgy);
+    return;
+  }
+  V2 qa = pa, qb = pb;
+  settle(p, qa, va, sa, ma, qb, vb, sb, mb, ra, rb, tgx, tgy);
+  settle(p, pa, va_p, sa, ma, pb, vb_p, sb, mb, ra, rb, tgx, tgy);
 }
 
 HD int lowest_bit(uint32_t m) {
@@ -403,8 +436,8 @@ HD NewCell pop_candidate(const Pop& pop, int k, int elapsed) {
   int mk = pop.pop_mass - CELL_POP_SIZE * k;
   mk = mk < CELL_POP_SIZE ? mk : CELL_POP_SIZE;
   return {pop.vx, pop.vy, pop.cvx, pop.cvy,
-          float(cos(double(ang))) * pop_speed,
-          float(sin(double(ang))) * pop_speed,
+          sincos32(ang, true) * pop_speed,
+          sincos32(ang, false) * pop_speed,
           mk > 1 ? mk : 1, elapsed + RECOMBINE_TICKS};
 }
 
@@ -1035,19 +1068,23 @@ HD void apply_actions(const EnvParams& p, const Cells& c, Player& u,
   u.action = act;
 }
 
-// the whole launch for env n: n_steps x (actions, ticks, frames, info rows)
+// the whole launch for env n: n_steps x (actions, n_ticks ticks, frames,
+// info rows). Null action planes skip the action phase: the partial-step
+// chain of fused_engine_tick (agarcl_tpu/ops/fused_tick.py kernel_nosteps),
+// n_ticks engine ticks of the planes as they are.
 template <int PC>
 HD void multi_step_env_t(const EnvParams& p, const Planes& s, int n, int N,
                          const float* ax, const float* ay, const int* aact,
-                         float* obs, float* info, int n_steps) {
+                         float* obs, float* info, int n_steps, int n_ticks) {
   const int P = players<PC>(p);
   Env<PC> e;
   load_env<PC>(p, s, n, N, e);
   for (int step = 0; step < n_steps; step++) {
-    for (int a = 0; a < p.A; a++)
-      apply_actions(p, e.c[a], e.pl[a], ax[a * N + n], ay[a * N + n],
-                    aact[a * N + n]);
-    for (int t = 0; t < p.ticks_per_step; t++)
+    if (ax != nullptr)
+      for (int a = 0; a < p.A; a++)
+        apply_actions(p, e.c[a], e.pl[a], ax[a * N + n], ay[a * N + n],
+                      aact[a * N + n]);
+    for (int t = 0; t < n_ticks; t++)
       engine_tick<PC>(p, s, n, N, e);
     store_cells<PC>(p, s, n, N, e);
     const long long row = (long long)step * N + n;
@@ -1073,14 +1110,16 @@ HD int player_capacity(int P) { return P == 1 ? 1 : P == 2 ? 2 : 9; }
 
 HD void multi_step_env(const EnvParams& p, const Planes& s, int n, int N,
                        const float* ax, const float* ay, const int* aact,
-                       float* obs, float* info, int n_steps) {
+                       float* obs, float* info, int n_steps, int n_ticks) {
   switch (player_capacity(p.P)) {
-    case 1: multi_step_env_t<1>(p, s, n, N, ax, ay, aact, obs, info, n_steps);
+    case 1: multi_step_env_t<1>(p, s, n, N, ax, ay, aact, obs, info, n_steps,
+                                n_ticks);
             break;
-    case 2: multi_step_env_t<2>(p, s, n, N, ax, ay, aact, obs, info, n_steps);
+    case 2: multi_step_env_t<2>(p, s, n, N, ax, ay, aact, obs, info, n_steps,
+                                n_ticks);
             break;
     default: multi_step_env_t<9>(p, s, n, N, ax, ay, aact, obs, info,
-                                 n_steps);
+                                 n_steps, n_ticks);
   }
 }
 
@@ -1092,10 +1131,10 @@ __global__ void __launch_bounds__(128)
 multi_step_kernel(const EnvParams p, const Planes s,
                   const float* __restrict__ ax, const float* __restrict__ ay,
                   const int* __restrict__ aact, float* __restrict__ obs,
-                  float* __restrict__ info, int N, int n_steps) {
+                  float* __restrict__ info, int N, int n_steps, int n_ticks) {
   const int n = blockIdx.x * blockDim.x + threadIdx.x;
   if (n >= N) return;
-  multi_step_env_t<PC>(p, s, n, N, ax, ay, aact, obs, info, n_steps);
+  multi_step_env_t<PC>(p, s, n, N, ax, ay, aact, obs, info, n_steps, n_ticks);
 }
 #endif
 
@@ -1106,23 +1145,24 @@ extern "C" int agarcl_multi_step(const agarcl::EnvParams* prm,
                                  void* const* planes, const float* ax,
                                  const float* ay, const int* aact,
                                  float* obs, float* info, int N, int n_steps,
-                                 cudaStream_t stream) {
-  if (prm->P < 1 || prm->P > 9) return int(cudaErrorInvalidValue);
+                                 int n_ticks, cudaStream_t stream) {
+  if (prm->P < 1 || prm->P > 9 || n_ticks < 0)
+    return int(cudaErrorInvalidValue);
   const agarcl::Planes s = agarcl::planes_from(planes);
   const int threads = 128;
   const int blocks = (N + threads - 1) / threads;
   switch (agarcl::player_capacity(prm->P)) {
     case 1:
       agarcl::multi_step_kernel<1><<<blocks, threads, 0, stream>>>(
-          *prm, s, ax, ay, aact, obs, info, N, n_steps);
+          *prm, s, ax, ay, aact, obs, info, N, n_steps, n_ticks);
       break;
     case 2:
       agarcl::multi_step_kernel<2><<<blocks, threads, 0, stream>>>(
-          *prm, s, ax, ay, aact, obs, info, N, n_steps);
+          *prm, s, ax, ay, aact, obs, info, N, n_steps, n_ticks);
       break;
     default:
       agarcl::multi_step_kernel<9><<<blocks, threads, 0, stream>>>(
-          *prm, s, ax, ay, aact, obs, info, N, n_steps);
+          *prm, s, ax, ay, aact, obs, info, N, n_steps, n_ticks);
   }
   return int(cudaGetLastError());
 }

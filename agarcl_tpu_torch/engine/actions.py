@@ -187,9 +187,7 @@ def disrupt_candidates(cells, ev, virus_pos, n_cells_start, elapsed):
     two_pi = float(np.float32(2.0 * np.pi))
     ang = theta[..., None] + (theta[..., None] + two_pi * k / nn)
     pop_speed = G.max_speed(float(C.CELL_POP_SIZE))
-    angd = ang.double()
-    svel = torch.stack([torch.cos(angd), torch.sin(angd)],
-                       dim=-1).to(torch.float32) * pop_speed
+    svel = torch.stack([G.cos32(ang), G.sin32(ang)], dim=-1) * pop_speed
 
     kk = torch.arange(K, dtype=torch.int32, device=dev)
     mass_k = torch.clamp(pop_mass[..., None] - C.CELL_POP_SIZE * kk,

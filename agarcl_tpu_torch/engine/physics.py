@@ -72,28 +72,39 @@ def _mutual_match(touch, rank):
 
 def _elastic(vel_a, vel_b, mass_a, mass_b, dxy, dist):
     """elastic_collision_between_balls: updates the velocity of the
-    smaller-mass cell only (both when equal)."""
+    smaller-mass cell only (both when equal). Returns the new (vel_a,
+    vel_b) twice: in the form of XLA's velocity outputs, then in that of
+    its position outputs (`_prevent_overlap`)."""
     n = dxy / torch.clamp(dist, min=1e-12)[..., None]
     nx, ny = n[..., 0], n[..., 1]
     tx, ty = -ny, nx
     # which product of each a*b + c*d XLA-CPU fuses was read off its
-    # vmapped tick (a probe over 4000 random pairs, all bit-equal)
+    # vmapped engine_tick (the context VecEnv runs), per fusion: the new
+    # velocities and the new positions of a pass are two fusions, and the
+    # tangential products are fused on (v.y, t.y) where the fusion sees
+    # the negation of n.y and on (v.x, t.x) where -n.y arrives formed
     dp_n1 = fma32(vel_a[..., 0], nx, vel_a[..., 1] * ny)
     dp_n2 = fma32(vel_b[..., 0], nx, vel_b[..., 1] * ny)
-    dp_t1 = fma32(vel_a[..., 1], ty, vel_a[..., 0] * tx)
-    dp_t2 = fma32(vel_b[..., 1], ty, vel_b[..., 0] * tx)
     m1 = mass_a.to(torch.float32)
     m2 = mass_b.to(torch.float32)
     msum = torch.clamp(m1 + m2, min=1.0)
     v1 = fma32(dp_n1, m1 - m2, (2.0 * m2) * dp_n2) / msum
-    v2 = fma32(2.0 * m1, dp_n1, dp_n2 * (m2 - m1)) / msum
-    new_a = torch.stack([fma32(tx, dp_t1, nx * v1),
-                         fma32(ty, dp_t1, ny * v1)], dim=-1)
-    new_b = torch.stack([fma32(tx, dp_t2, nx * v2),
-                         fma32(ty, dp_t2, ny * v2)], dim=-1)
-    vel_a = _w((mass_a <= mass_b)[..., None], new_a, vel_a)
-    vel_b = _w((mass_a >= mass_b)[..., None], new_b, vel_b)
-    return vel_a, vel_b
+    v2 = fma32(dp_n2, m2 - m1, (2.0 * m1) * dp_n1) / msum
+    out = []
+    for tx_first in (False, True):
+        if tx_first:
+            dp_t1 = fma32(vel_a[..., 0], tx, vel_a[..., 1] * ty)
+            dp_t2 = fma32(vel_b[..., 0], tx, vel_b[..., 1] * ty)
+        else:
+            dp_t1 = fma32(vel_a[..., 1], ty, vel_a[..., 0] * tx)
+            dp_t2 = fma32(vel_b[..., 1], ty, vel_b[..., 0] * tx)
+        new_a = torch.stack([fma32(tx, dp_t1, nx * v1),
+                             fma32(ty, dp_t1, ny * v1)], dim=-1)
+        new_b = torch.stack([fma32(tx, dp_t2, nx * v2),
+                             fma32(ty, dp_t2, ny * v2)], dim=-1)
+        out.append((_w((mass_a <= mass_b)[..., None], new_a, vel_a),
+                    _w((mass_a >= mass_b)[..., None], new_b, vel_b)))
+    return out
 
 
 def _l1_ratio(dxy):
@@ -158,20 +169,13 @@ def _separate_cells(pos_a, pos_b, mass_a, mass_b, rad_a, rad_b, target):
             _w(ow & ~a_small, pos_b + move, pos_b))
 
 
-def _prevent_overlap(pos_a, vel_a, svel_a, mass_a, pos_b, vel_b, svel_b,
-                     mass_b, target, arena_w, arena_h, dt):
-    """prevent_overlap: move both back one dt, elastic collision (normals
-    from the pre-move-back positions), move both forward one dt, then the
-    static/separate fallback if still touching, then boundary clamp."""
-    rad_a, rad_b = G.radius(mass_a), G.radius(mass_b)
-    dxy0 = pos_b - pos_a
-    dist0 = G.vec_norm(dxy0)
-    pos_a = fma32(-(vel_a + svel_a), dt, pos_a)
-    pos_b = fma32(-(vel_b + svel_b), dt, pos_b)
-    vel_a, vel_b = _elastic(vel_a, vel_b, mass_a, mass_b, dxy0, dist0)
+def _settle(pos_a, vel_a, svel_a, mass_a, pos_b, vel_b, svel_b, mass_b,
+            rad_a, rad_b, target, arena_w, arena_h, dt):
+    """The end of prevent_overlap from the moved-back positions and the new
+    velocities: move both forward one dt, the static/separate fallback if
+    still touching, the boundary clamp."""
     pos_a = fma32(vel_a + svel_a, dt, pos_a)
     pos_b = fma32(vel_b + svel_b, dt, pos_b)
-
     d1 = pos_b - pos_a
     rs = rad_a + rad_b
     still = rs * rs >= G.norm2(d1[..., 0], d1[..., 1])
@@ -189,6 +193,41 @@ def _prevent_overlap(pos_a, vel_a, svel_a, mass_a, pos_b, vel_b, svel_b,
     vel_b = _w(use_static, sa_vb, vel_b)
     pos_a = G.boundary_clamp(pos_a, rad_a, arena_w, arena_h)
     pos_b = G.boundary_clamp(pos_b, rad_b, arena_w, arena_h)
+    return pos_a, vel_a, pos_b, vel_b
+
+
+def _prevent_overlap(pos_a, vel_a, svel_a, mass_a, pos_b, vel_b, svel_b,
+                     mass_b, target, arena_w, arena_h, dt):
+    """prevent_overlap: move both back one dt, elastic collision (normals
+    from the pre-move-back positions), then `_settle`. XLA-CPU computes the
+    new velocities and the new positions in two fusions, each with its own
+    form of the elastic velocities (`_elastic`), so each output is settled
+    from its own."""
+    rad_a, rad_b = G.radius(mass_a), G.radius(mass_b)
+    dxy0 = pos_b - pos_a
+    dist0 = G.vec_norm(dxy0)
+    back_a = fma32(-(vel_a + svel_a), dt, pos_a)
+    back_b = fma32(-(vel_b + svel_b), dt, pos_b)
+    (va_v, vb_v), (va_p, vb_p) = _elastic(vel_a, vel_b, mass_a, mass_b,
+                                          dxy0, dist0)
+    pos_a, vel_a, pos_b, vel_b = _settle(
+        back_a, va_v, svel_a, mass_a, back_b, vb_v, svel_b, mass_b, rad_a,
+        rad_b, target, arena_w, arena_h, dt)
+    # the pairs whose two forms differ in a bit (few) settle their
+    # positions again from the position outputs' form
+    differ = ((va_p != va_v) | (vb_p != vb_v)).any(-1)
+    if bool(differ.any()):
+        idx = differ.nonzero(as_tuple=True)
+
+        def pick(x):
+            return x.expand(differ.shape + x.shape[differ.dim():])[idx]
+        pa, _, pb, _ = _settle(*(pick(x) for x in (
+            back_a, va_p, svel_a, mass_a, back_b, vb_p, svel_b, mass_b,
+            rad_a, rad_b, target)), arena_w, arena_h, dt)
+        pos_a = pos_a.clone()
+        pos_b = pos_b.clone()
+        pos_a[idx] = pa
+        pos_b[idx] = pb
     return pos_a, vel_a, pos_b, vel_b
 
 

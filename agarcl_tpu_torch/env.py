@@ -155,7 +155,16 @@ def env_step(cfg: EnvConfig, state: GameState, actions,
                                         respawn_main_during_obs)
     if obs_fn is None:
         return state, rewards, dones
-    return state, torch.stack(frames, 1), rewards, dones
+    return state, stack_frames(frames, 1), rewards, dones
+
+
+def stack_frames(frames, dim: int):
+    """Stack frames along dim; a structured (dict) frame is stacked key by
+    key."""
+    if isinstance(frames[0], dict):
+        return {k: torch.stack([f[k] for f in frames], dim)
+                for k in frames[0]}
+    return torch.stack(frames, dim)
 
 
 def finish_step(cfg: EnvConfig, state: GameState, before,

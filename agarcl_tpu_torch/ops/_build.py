@@ -75,7 +75,7 @@ def _declare(lib) -> None:
     lib.agarcl_ram_frame.argtypes = [vp, vp, vp, i32, vp]
     lib.agarcl_ram_frame.restype = i32
     lib.agarcl_multi_step.argtypes = [vp, vp, vp, vp, vp, vp, vp, i32, i32,
-                                      vp]
+                                      i32, vp]
     lib.agarcl_multi_step.restype = i32
     lib.agarcl_screen.argtypes = [vp, vp, vp, vp, i32, vp]
     lib.agarcl_screen.restype = i32

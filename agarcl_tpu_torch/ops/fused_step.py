@@ -6,9 +6,20 @@
   fused_env_multi_step_resident), with per-step screen or grid frames for a
   ScreenObsConfig or GridObsConfig;
 - `fused_env_step`: one step on a GameState (as fused_env_step): the tick
-  kernel with k=1, the frame kernel (screen or grid) on the post-step
-  planes, then `_finish_step` (main respawn, mode rules, rewards,
-  auto-reset).
+  kernel, the frame kernel (screen or grid) on the post-step planes, then
+  `_finish_step` (main respawn, mode rules, rewards, auto-reset).
+
+A step that returns F frames (num_frames) follows the JAX fused step's
+chain (agarcl_tpu/ops/fused_step.py:66-80, :117-131): K1 with a tick count
+(fused_tick.engine_tick_raw) with the actions and ticks_per_step - F + 1
+ticks, then the frame; then F - 1 times K1 with one tick and no actions,
+then the frame. (The JAX chain runs ticks_per_step - F ticks and a first
+one-tick call; folding them into one launch gives the same states.) At
+F = 1 this is one whole step and one frame. For
+F > ticks_per_step the step returns ticks_per_step frames behind
+F - ticks_per_step zero frames, the shape of the XLA env_step
+(agarcl_tpu/env.py:152-157); the JAX fused step returns
+min(F, ticks_per_step) frames instead (ROADMAP.md, Queue 3).
 """
 
 from __future__ import annotations
@@ -20,6 +31,7 @@ import torch
 from agarcl_tpu_torch import constants as C
 from agarcl_tpu_torch.config import EnvConfig
 from agarcl_tpu_torch.env import finish_step, reset_done
+from agarcl_tpu_torch.obs.gobigger import GoBiggerObsConfig, gobigger_frame
 from agarcl_tpu_torch.obs.grid import GridObsConfig
 from agarcl_tpu_torch.obs.ram import RamObsConfig
 from agarcl_tpu_torch.obs.screen import ScreenObsConfig
@@ -88,45 +100,68 @@ def frame_kernel(ocfg):
     return None
 
 
-def _frame_steps(cfg, raw, actions, k, ocfg, step, stack_obs):
-    """k x (one-step tick, then the frame wrapper on the post-step planes).
-    Returns (planes, obs (k, N, 1, A, ...) or a k-tuple of (N, 1, A, ...),
-    info (k, N, 2, P)); stacked frames are written into their slice of one
-    buffer."""
+def _framed_step(cfg, raw, actions, ocfg, F, frame, tick, out):
+    """One step that writes its F frames into out (F, N, A, ...) through
+    `tick` (engine_tick_raw or its plain version): the chain of the module
+    docstring, zero frames first when F > ticks_per_step. Returns (planes,
+    info (N, 2, P))."""
+    Fe = min(F, cfg.ticks_per_step)
+    out[:F - Fe].zero_()
+    raw, _, inf = tick(cfg, raw, cfg.ticks_per_step - Fe + 1, None, actions)
+    frame(cfg, ocfg, raw, out=out[F - Fe])
+    for f in range(F - Fe + 1, F):
+        raw, _, inf = tick(cfg, raw, 1)
+        frame(cfg, ocfg, raw, out=out[f])
+    return raw, inf
+
+
+def _frame_steps(cfg, raw, actions, k, ocfg, tick, stack_obs):
+    """k framed steps (`_framed_step`) of F = ocfg.num_frames frames each.
+    Returns (planes, obs (k, N, F, A, ...) or a k-tuple of (N, F, A, ...),
+    info (k, N, 2, P)). Each frame is written into its slice of a
+    (k, F, N, A, ...) buffer, returned as a (k, N, F, A, ...) view."""
     frame, shape, dtype = frame_kernel(ocfg)
+    F = ocfg.num_frames
     N = raw[0].shape[-1]
-    buf = (torch.empty((k, N, 1, cfg.num_agents) + shape, dtype=dtype,
-                       device=raw[0].device) if stack_obs else None)
+    dev = raw[0].device
+    full = (F, N, cfg.num_agents) + shape
+    buf = (torch.empty((k,) + full, dtype=dtype, device=dev) if stack_obs
+           else None)
     frames, info = [], []
     for t in range(k):
-        raw, _, inf = step(cfg, raw, actions, 1, None)
-        info.append(inf[0])
-        if stack_obs:
-            frame(cfg, ocfg, raw, out=buf[t, :, 0])
-        else:
-            frames.append(frame(cfg, ocfg, raw)[:, None])
-    return raw, (buf if stack_obs else tuple(frames)), torch.stack(info)
+        out = (buf[t] if stack_obs
+               else torch.empty(full, dtype=dtype, device=dev))
+        raw, inf = _framed_step(cfg, raw, actions, ocfg, F, frame, tick, out)
+        info.append(inf)
+        if not stack_obs:
+            frames.append(out.transpose(0, 1))
+    obs = buf.transpose(1, 2) if stack_obs else tuple(frames)
+    return raw, obs, torch.stack(info)
 
 
 def multi_step_resident(cfg: EnvConfig, resident: ResidentState, actions,
-                        k: int, ocfg, step=FT.multi_step_raw,
+                        k: int, ocfg, plain: bool = False,
                         stack_obs: bool = True):
-    """k env steps on resident state through `step`: the K1 wrapper
-    fused_tick.multi_step_raw by default, or its plain version
-    fused_tick.multi_step_raw_plain (the "torch" backend, any device).
-    With a ScreenObsConfig or GridObsConfig, each step is a one-step `step`
-    call followed by the frame wrapper (`frame_kernel`: K3 or K4 on CUDA).
+    """k env steps on resident state through the K1 wrappers
+    (fused_tick.multi_step_raw, and engine_tick_raw for frames), or with
+    plain=True through their plain versions on any device. RAM and no
+    observation run as one multi_step_raw call; a ScreenObsConfig or
+    GridObsConfig runs each step as `_framed_step`'s chain of
+    engine_tick_raw calls, a frame wrapper (`frame_kernel`: K3 or K4 on
+    CUDA) after each.
 
     Returns (resident, obs, rewards (k, N, A) f32, dones (k, N, A) bool);
-    obs is (k, N, 1, A, R) for RAM, (k, N, 1, A, S, S, C) uint8 for screen,
-    (k, N, 1, A, C, G, G) for grid (screen and grid: a k-tuple of
-    (N, 1, A, ...) with stack_obs=False), or None."""
+    obs is (k, N, 1, A, R) for RAM, (k, N, F, A, S, S, C) uint8 for screen,
+    (k, N, F, A, C, G, G) for grid (screen and grid: a k-tuple of
+    (N, F, A, ...) with stack_obs=False), or None."""
     A = cfg.num_agents
     ms = cfg.mode_spec
     if frame_kernel(ocfg) is not None:
+        tick = FT.engine_tick_raw_plain if plain else FT.engine_tick_raw
         raw, obs, info = _frame_steps(cfg, resident.raw, actions, k, ocfg,
-                                      step, stack_obs)
+                                      tick, stack_obs)
     else:
+        step = FT.multi_step_raw_plain if plain else FT.multi_step_raw
         raw, obs, info = step(cfg, resident.raw, actions, k, ocfg)
         obs = obs[:, :, None] if obs is not None else None
     mass_a = info[:, :, 0, :A]                               # (k, N, A)
@@ -151,28 +186,37 @@ def fused_env_step(cfg: EnvConfig, states: GameState, actions, ocfg,
                    respawn_main_during_obs: bool = False):
     """One env step of a batch through the kernel wrappers: apply actions
     plus ticks_per_step ticks (multi_step_raw with k=1, K1 on CUDA, which
-    also writes the RAM frames of a RamObsConfig), the frame of the
-    post-step state (`frame_kernel`: a ScreenObsConfig: fused_screen_frame,
-    K3 on CUDA, or class_map_frame for polygon screens K3 does not take; a
-    GridObsConfig: fused_grid_frame, K4 on CUDA), then `_finish_step`.
-    Returns (states, obs (N, 1, A, ...) or None, rewards (N, A),
-    dones (N, A))."""
-    if num_frames != 1:
-        raise NotImplementedError(
-            "the tick kernel runs whole steps: frames of earlier ticks "
-            "(num_frames > 1) are not ported to the kernel path")
+    also writes the RAM frames of a RamObsConfig), or for a frame
+    observation `_framed_step`'s chain of engine_tick_raw calls and frames
+    (`frame_kernel`: a ScreenObsConfig: fused_screen_frame, K3 on CUDA, or
+    class_map_frame for polygon screens K3 does not take; a GridObsConfig:
+    fused_grid_frame, K4 on CUDA); then `_finish_step`. A
+    GoBiggerObsConfig takes the plain gobigger_frame of the post-step state
+    (the JAX package has no kernel for it). Returns (states,
+    obs (N, F, A, ...), a GoBigger dict of (N, 1, A, ...) or None,
+    rewards (N, A), dones (N, A))."""
     A = cfg.num_agents
     before = states.player_mass()[:, :A].to(torch.float32)
     ram = isinstance(ocfg, RamObsConfig)
-    planes, obs, _ = FT.multi_step_raw(cfg, FT.to_kernel_arrays(states),
-                                       actions, 1, ocfg if ram else None)
-    if ram:
-        obs = obs[0][:, None]
-    elif ocfg is not None:
-        obs = frame_kernel(ocfg)[0](cfg, ocfg, planes)[:, None]
+    planes = FT.to_kernel_arrays(states)
+    route = frame_kernel(ocfg)
+    if route is not None:
+        frame, shape, dtype = route
+        out = torch.empty((num_frames, states.num_envs, A) + shape,
+                          dtype=dtype, device=states.device)
+        planes, _ = _framed_step(cfg, planes, actions, ocfg, num_frames,
+                                 frame, FT.engine_tick_raw, out)
+        obs = out.transpose(0, 1)
+    else:
+        planes, obs, _ = FT.multi_step_raw(cfg, planes, actions, 1,
+                                           ocfg if ram else None)
+        obs = obs[0][:, None] if ram else None
     template = states.replace(main_respawned=torch.zeros_like(
         states.main_respawned))
     states = FT.from_kernel_arrays(template, planes)
+    if isinstance(ocfg, GoBiggerObsConfig):
+        obs = {k: v[:, None] for k, v in gobigger_frame(cfg, ocfg,
+                                                        states).items()}
     return _finish_step(cfg, states, obs, before, respawn_main_during_obs,
                         auto_reset)
 

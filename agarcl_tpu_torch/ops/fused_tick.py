@@ -19,7 +19,12 @@ the player masses, row 1 alive as 0/1).
 
 `multi_step_raw` launches K1 for CUDA tensors and runs the plain version,
 `multi_step_raw_plain` (the engine_tick loop plus ram_frame), only for CPU
-tensors. `launches` counts K1 launches.
+tensors. `engine_tick_raw`, the counterpart of fused_engine_tick, is K1
+called with a tick count and optional actions (null action planes skip the
+action phase): the steps that return frames run through it, as do the
+partial steps of a multi-frame step; its plain version is
+`engine_tick_raw_plain`. Both plain versions share one body. `launches`
+counts every K1 launch, `tick_launches` those made through engine_tick_raw.
 """
 
 from __future__ import annotations
@@ -66,8 +71,9 @@ for _name, _kind in SPLIT_PLAN:
     PLANE_INDEX[_name] = ((_i, _i + 1) if _kind in ("v2", "v2p", "v2c")
                           else (_i,))
 
-launches = 0          # K1 launches (the kernel path of multi_step_raw)
-plain_calls = 0       # multi_step_raw_plain calls
+launches = 0          # K1 launches (multi_step_raw and engine_tick_raw)
+tick_launches = 0     # K1 launches made through engine_tick_raw
+plain_calls = 0       # multi_step_raw_plain / engine_tick_raw_plain calls
 
 
 def _seed_plane(seed: torch.Tensor) -> torch.Tensor:
@@ -143,21 +149,21 @@ def _actions_planes(cfg: EnvConfig, actions: torch.Tensor, N: int):
             acts[..., 2].to(torch.int32).T.contiguous())
 
 
-def multi_step_raw_plain(cfg: EnvConfig, planes, actions, k: int,
-                         ocfg: RamObsConfig | None):
-    """The plain version of K1 on any device: from the planes, k times
-    (apply_actions, ticks_per_step x engine_tick, ram_frame, mass/alive
-    rows), back to planes. Returns (planes, obs (k,N,A,R) | None,
-    info (k,N,2,P))."""
+def _plain_steps(cfg: EnvConfig, planes, actions, k: int, n_ticks: int,
+                 ocfg: RamObsConfig | None):
+    """The one body of K1's plain versions: from the planes, k times
+    (apply_actions unless actions is None, n_ticks x engine_tick, ram_frame
+    of a RamObsConfig, mass/alive rows), back to planes. Returns (planes,
+    obs (k,N,A,R) | None, info (k,N,2,P))."""
     global plain_calls
     plain_calls += 1
     N = planes[0].shape[-1]
-    dev = planes[0].device
-    state = from_kernel_arrays(zero_state(cfg, N, dev), planes)
+    state = from_kernel_arrays(zero_state(cfg, N, planes[0].device), planes)
     obs, info = [], []
     for _ in range(k):
-        state = apply_actions(cfg, state, actions)
-        for _ in range(cfg.ticks_per_step):
+        if actions is not None:
+            state = apply_actions(cfg, state, actions)
+        for _ in range(n_ticks):
             state = engine_tick(cfg, state)
         if ocfg is not None:
             obs.append(ram_frame(cfg, ocfg, state))
@@ -166,6 +172,24 @@ def multi_step_raw_plain(cfg: EnvConfig, planes, actions, k: int,
                                 dim=1))
     obs_t = torch.stack(obs) if ocfg is not None else None
     return to_kernel_arrays(state), obs_t, torch.stack(info)
+
+
+def multi_step_raw_plain(cfg: EnvConfig, planes, actions, k: int,
+                         ocfg: RamObsConfig | None):
+    """The plain version of K1 on any device: k times (apply_actions,
+    ticks_per_step x engine_tick, ram_frame, mass/alive rows). Returns
+    (planes, obs (k,N,A,R) | None, info (k,N,2,P))."""
+    return _plain_steps(cfg, planes, actions, k, cfg.ticks_per_step, ocfg)
+
+
+def engine_tick_raw_plain(cfg: EnvConfig, planes, n_ticks: int,
+                          ocfg: RamObsConfig | None = None, actions=None):
+    """The plain version of engine_tick_raw on any device: optional
+    apply_actions, n_ticks x engine_tick, then the RAM frame of a
+    RamObsConfig and the (mass, alive) rows. Returns (planes,
+    obs (N,A,R) | None, info (N,2,P))."""
+    planes, obs, info = _plain_steps(cfg, planes, actions, 1, n_ticks, ocfg)
+    return planes, (obs[0] if obs is not None else None), info[0]
 
 
 def _plane_specs(cfg: EnvConfig):
@@ -227,41 +251,80 @@ def _ptr_array(tensors):
     return arr
 
 
+def _check_call(cfg: EnvConfig, planes, actions):
+    """Validate a K1 call (roster, device, planes, actions); returns N."""
+    if not supports(cfg):
+        raise NotImplementedError(
+            f"the multi-step kernel covers rosters of up to {MAX_ROSTER} "
+            f"players at the pinned capacities ({cfg.num_players} players)")
+    dev = planes[0].device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    N = check_planes(cfg, planes)
+    if actions is not None:
+        A = cfg.num_agents
+        if actions.device != dev or actions.numel() != N * A * 3:
+            raise ValueError(f"actions must be ({N}, {A}, 3) on {dev}")
+    return N
+
+
+def _launch(cfg: EnvConfig, planes, actions, k: int, n_ticks: int,
+            ocfg: RamObsConfig | None, N: int):
+    """One K1 launch: k x (actions unless None, n_ticks ticks, RAM frame,
+    info rows) on the planes in place. Returns (obs (k,N,A,R) | None,
+    info (k,N,2,P))."""
+    global launches
+    dev = planes[0].device
+    A, P = cfg.num_agents, cfg.num_players
+    R = ram_size(cfg, ocfg or RamObsConfig())
+    obs = (torch.empty((k, N, A, R), dtype=torch.float32, device=dev)
+           if ocfg is not None else None)
+    info = torch.empty((k, N, 2, P), dtype=torch.float32, device=dev)
+    ptr = (lambda t: t.data_ptr() if t is not None else None)
+    ax = ay = aact = None
+    if actions is not None:
+        ax, ay, aact = _actions_planes(cfg, actions, N)
+    lib = _build.load()
+    prm = KP.env_params(cfg, ocfg)
+    status = lib.agarcl_multi_step(
+        ctypes.byref(prm), _ptr_array(planes), ptr(ax), ptr(ay), ptr(aact),
+        ptr(obs), info.data_ptr(), N, k, n_ticks,
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, status, "multi-step tick kernel")
+    launches += 1
+    return obs, info
+
+
 def multi_step_raw(cfg: EnvConfig, planes, actions, k: int,
                    ocfg: RamObsConfig | None):
     """k env steps on kernel-layout planes: K1 for CUDA tensors (updated
     in place), the plain version for CPU tensors. Returns (planes,
     obs (k,N,A,R) | None, info (k,N,2,P))."""
-    if not supports(cfg):
-        raise NotImplementedError(
-            f"the multi-step kernel covers rosters of up to {MAX_ROSTER} "
-            f"players at the pinned capacities ({cfg.num_players} players)")
+    actions = torch.as_tensor(actions)
+    N = _check_call(cfg, planes, actions)
     if k < 1:
         raise ValueError("k must be >= 1")
-    dev = planes[0].device
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {dev}")
-    N = check_planes(cfg, planes)
-    A, P = cfg.num_agents, cfg.num_players
-    actions = torch.as_tensor(actions)
-    if actions.device != dev or actions.numel() != N * A * 3:
-        raise ValueError(f"actions must be ({N}, {A}, 3) on {dev}")
-    if dev.type == "cpu":
+    if planes[0].device.type == "cpu":
         return multi_step_raw_plain(cfg, planes, actions, k, ocfg)
-    ax, ay, aact = _actions_planes(cfg, actions, N)
-    R = ram_size(cfg, ocfg or RamObsConfig())
-    obs = (torch.empty((k, N, A, R), dtype=torch.float32, device=dev)
-           if ocfg is not None else None)
-    info = torch.empty((k, N, 2, P), dtype=torch.float32, device=dev)
-    lib = _build.load()
-    prm = KP.env_params(cfg, ocfg)
-    ptrs = _ptr_array(planes)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    global launches
-    status = lib.agarcl_multi_step(
-        ctypes.byref(prm), ptrs, ax.data_ptr(), ay.data_ptr(),
-        aact.data_ptr(), obs.data_ptr() if obs is not None else None,
-        info.data_ptr(), N, k, stream)
-    _build.check(lib, status, "multi-step tick kernel")
-    launches += 1
+    obs, info = _launch(cfg, planes, actions, k, cfg.ticks_per_step, ocfg, N)
     return planes, obs, info
+
+
+def engine_tick_raw(cfg: EnvConfig, planes, n_ticks: int,
+                    ocfg: RamObsConfig | None = None, actions=None):
+    """K1 with a tick count (fused_engine_tick's counterpart): optional
+    actions, then n_ticks engine ticks of the planes, then the RAM frame of
+    a RamObsConfig and the info rows. K1 for CUDA tensors (planes updated
+    in place), engine_tick_raw_plain for CPU tensors. Returns (planes,
+    obs (N,A,R) | None, info (N,2,P))."""
+    if actions is not None:
+        actions = torch.as_tensor(actions)
+    N = _check_call(cfg, planes, actions)
+    if n_ticks < 0:
+        raise ValueError("n_ticks must be >= 0")
+    if planes[0].device.type == "cpu":
+        return engine_tick_raw_plain(cfg, planes, n_ticks, ocfg, actions)
+    global tick_launches
+    obs, info = _launch(cfg, planes, actions, 1, n_ticks, ocfg, N)
+    tick_launches += 1
+    return planes, (obs[0] if obs is not None else None), info[0]

@@ -85,10 +85,36 @@ two agents' frames. Phases, one line each:
  18. times: polygon screen-path env-steps/s for both backends, K3 poly
      per frame against its bound and against circle mode on the same
      state, the wavy route per step, K3 and K4 per step at 2 agents
-     against their bounds.
+     against their bounds;
+ 19. K1 with a tick count (fused_tick.engine_tick_raw: n ticks with no
+     action phase, or with one, then the RAM frame and info rows) against
+     engine_tick_raw_plain on a played and a heavy state of the bench.py
+     game at 8192 envs, the duel (2 players) at 8192 and mode 0 with 8
+     bots (9 players) at 2048: 1 and 3 ticks, with and without actions;
+     integer state equal in every env, f32 within 2e-3;
+ 20. the multi-frame paths (num_frames 4: every tick of a 4-tick step
+     framed) at 8192 envs: reset + multi_step(k=10) of the 128 x 128 agent
+     view screen in the bench.py game and the duel (mode 10) and of the
+     64 x 64 int16 grid: K1 through engine_tick_raw 4 times a step, K3 / K4 4
+     times a step and once at reset, plain 0; frames (10, 8192, 4, 1, ...);
+     2 steps from the same state equal to the torch backend; num_frames 6
+     (two zero frames first);
+ 21. the gym core (gym_core.AgarioCore, no gymnasium) on the card against
+     the same core with the plain backend on the card: tasks 10 and 1
+     (load_task_core) for 300 steps, the default gym world (arena 1000,
+     1000 pellets) with the grid at num_frames 4, RAM and GoBigger for 100
+     steps; obs, rewards and dones equal; a checkpoint and a JSON snapshot
+     saved on the card and reloaded give the same next step;
+ 22. VecEnv(obs_type="gobigger") at 8192 envs: K1, then the plain
+     gobigger_frame on the card, equal to the torch backend;
+ 23. times: num_frames-4 screen and grid env-steps/s, K1 per one-tick
+     partial-step call against its bound, gym steps per second at 1 env
+     per obs type with the share of a step that is host time.
 
 Then a JSON line describing each kernel, the GPU line and, last, the
-device JSON line.
+device JSON line. Every screen and grid step runs K1 through
+engine_tick_raw, so the JSON line lists those launches under
+"engine_tick" and the RAM and GoBigger paths' under "multi_step_tick".
 Any failure raises and exits non-zero. Without a CUDA device the script
 exits non-zero before printing any result; it never falls back to the CPU.
 """
@@ -457,6 +483,7 @@ def _zero_counts() -> None:
     from agarcl_tpu_torch.obs import screen as TS
     for m in _kernel_modules():
         m.launches = m.plain_calls = 0
+    _kernel_modules()[0].tick_launches = 0
     TS.class_map_calls = 0
 
 
@@ -492,7 +519,7 @@ def _phase13(dev, ocfg) -> float:
     def both(cfg, rk, rp, k, a):
         return (fused_step.multi_step_resident(cfg, rk, a, k, ocfg),
                 fused_step.multi_step_resident(
-                    cfg, rp, a, k, ocfg, step=FT.multi_step_raw_plain))
+                    cfg, rp, a, k, ocfg, plain=True))
 
     err = 0.0
     acts = _random_actions(N_ENVS, dev)
@@ -561,12 +588,13 @@ def _screen_path(cfg, dev, acts, scr, label, phase="14 duel screen path"):
     st0, sobs0 = senv.reset(0)
     st, sobs, srew, sdone = senv.multi_step(st0, acts, K_SCREEN)
     torch.cuda.synchronize(dev)
-    k1, k3, plain = FT.launches, FS.launches, _plain_count()
+    k1, k3, plain = FT.tick_launches, FS.launches, _plain_count()
     routed = TS.class_map_calls
-    _check(k1 == K_SCREEN and k3 == K_SCREEN + 1 and plain == 0
-           and routed == 0,
-           f"{label} screen path launches K1 {K_SCREEN}x, K3 "
-           f"{K_SCREEN + 1}x, plain 0x, class map 0x (K1 {k1}, K3 {k3}, "
+    _check(k1 == FT.launches == K_SCREEN and k3 == K_SCREEN + 1
+           and plain == 0 and routed == 0,
+           f"{label} screen path launches K1 {K_SCREEN}x through "
+           f"engine_tick_raw, K3 {K_SCREEN + 1}x, plain 0x, class map 0x "
+           f"(K1 {FT.launches}, through engine_tick_raw {k1}, K3 {k3}, "
            f"plain {plain}, class map {routed})")
     _check(tuple(sobs.shape) == (K_SCREEN, N_ENVS, 1, 1, S_SCREEN, S_SCREEN,
                                  4) and sobs.dtype == torch.uint8,
@@ -642,6 +670,333 @@ def _per_step_ram(cfg, n, dev, k, label):
     return k1
 
 
+F_FRAMES = 4                             # every tick of a 4-tick step
+GYM_STEPS = 300                          # steps of each task on the core
+GYM_WORLD_STEPS = 100                    # steps of the default gym world
+
+
+def _partial_work(cfg, n: int, n_ticks: int):
+    """Bytes and f32 operations of one K1 call in partial-step mode with no
+    actions and no frame: every state plane read and written once, the
+    (mass, alive) rows written; the pellet-eat distance tests of one cell
+    per player and tick (6 each) as the operations (a lower bound)."""
+    from agarcl_tpu_torch.ops import fused_tick as FT
+    state = sum(r * (1 if dt == torch.bool else 4)
+                for _, r, dt in FT._plane_specs(cfg))
+    nbytes = n * (2 * state + 8 * cfg.num_players)
+    return nbytes, n * n_ticks * cfg.pellet_capacity * 6 * cfg.num_players
+
+
+def _phase19(cfg, duel, m0_8, played, heavy, ocfg, dev) -> float:
+    """K1's partial-step mode against engine_tick_raw_plain: n = 1 and 3
+    ticks, with and without actions, at 1, 2 and 9 players; integer state
+    equal in every env, f32 within 2e-3, RAM frames within 1e-5 / 1e-4,
+    info rows equal. Returns the largest error."""
+    from agarcl_tpu_torch.env import env_reset, reset_seeds
+    from agarcl_tpu_torch.vec import VecEnv
+    FT = _kernel_modules()[0]
+    err = 0.0
+    sd, _, _, _ = VecEnv(duel, N_ENVS, "none", backend="torch",
+                         device=dev).multi_step(
+        env_reset(duel, reset_seeds(N_ENVS, 0, dev)),
+        _random_actions(N_ENVS, dev), 3)
+    s9 = env_reset(m0_8, reset_seeds(N_ROSTER, 0, dev))
+    cases = [("bench.py game, played", cfg, played),
+             ("bench.py game, heavy", cfg, heavy),
+             ("duel (mode 7), 2 players", duel, sd),
+             ("mode 0 with 8 bots, 9 players", m0_8, s9)]
+    for label, c, s in cases:
+        n = s.num_envs
+        for n_ticks, with_actions in ((1, False), (3, True), (1, True),
+                                      (3, False)):
+            a = _random_actions(n, dev, c.num_agents) if with_actions \
+                else None
+            before = FT.tick_launches
+            pk, ok, ik = FT.engine_tick_raw(c, FT.to_kernel_arrays(s),
+                                            n_ticks, ocfg, a)
+            pp, op, ip = FT.engine_tick_raw_plain(c, FT.to_kernel_arrays(s),
+                                                  n_ticks, ocfg, a)
+            torch.cuda.synchronize(dev)
+            _check(FT.tick_launches == before + 1, "one partial-step launch")
+            sk, sp = FT.from_kernel_arrays(s, pk), FT.from_kernel_arrays(s,
+                                                                         pp)
+            n_bad = int(_int_mismatch_envs(sk, sp).sum())
+            what = (f"{label}, {n_ticks} ticks "
+                    f"{'with' if with_actions else 'without'} actions")
+            _check(n_bad == 0, f"partial step {what}: integer state equal in "
+                   f"every env ({n_bad} differ)")
+            f32 = max((getattr(sk, f) - getattr(sp, f)).abs().max().item()
+                      for f in ("cell_pos", "cell_vel", "cell_split_vel",
+                                "virus_pos", "food_pos", "food_vel",
+                                "target", "anti_team_decay"))
+            obs_err = (ok - op).abs().max().item()
+            _check(f32 <= TOL_F32_STATE
+                   and bool(torch.allclose(ok, op, **TOL_RAM))
+                   and bool(torch.equal(ik, ip)),
+                   f"partial step {what}: f32 within 2e-3 ({f32}), RAM "
+                   f"frames within 1e-5 / 1e-4 ({obs_err}), info equal")
+            err = max(err, f32, obs_err)
+        print(f"[19 K1 partial step] {label}, {n} envs: 1 and 3 ticks, with "
+              f"and without actions, each 1 launch: integer state equal in "
+              f"every env, max f32 err {err:.3g} (2e-3), RAM frames and info "
+              f"rows equal to engine_tick_raw_plain", flush=True)
+    return err
+
+
+def _frames_path(cfg, dev, acts, ocfg, label, k=K_SCREEN):
+    """A multi-frame path (num_frames F): reset + multi_step(k) on the card
+    (counts from zero: K1 in partial-step mode F times a step, the frame
+    kernel F times a step and once at reset, plain 0), then 2 steps
+    against the torch backend from the same state. Returns (K1 launches,
+    frame-kernel launches)."""
+    from agarcl_tpu_torch.obs.grid import GridObsConfig
+    from agarcl_tpu_torch.vec import VecEnv
+    FT, _, FS, FG = _kernel_modules()
+    kind = "grid" if isinstance(ocfg, GridObsConfig) else "screen"
+    mod = FG if kind == "grid" else FS
+    F = ocfg.num_frames
+    Fe = min(F, cfg.ticks_per_step)
+    env = VecEnv(cfg, N_ENVS, kind, obs_config=ocfg)
+    penv = VecEnv(cfg, N_ENVS, kind, backend="torch", device=dev,
+                  obs_config=ocfg)
+    _zero_counts()
+    st0, _ = env.reset(0)
+    st, obs, rew, done = env.multi_step(st0, acts, k)
+    torch.cuda.synchronize(dev)
+    k1, k1t, kf, plain = (FT.launches, FT.tick_launches, mod.launches,
+                          _plain_count())
+    _check(k1 == k1t == k * Fe and kf == k * Fe + 1 and plain == 0,
+           f"{label}: K1 {k * Fe}x through engine_tick_raw, the frame "
+           f"kernel {k * Fe + 1}x, plain 0x (K1 {k1}, through "
+           f"engine_tick_raw {k1t}, frame {kf}, plain {plain})")
+    _check(tuple(obs.shape[:4]) == (k, N_ENVS, F, 1),
+           f"{label}: frames {tuple(obs.shape)}")
+    _check(bool(torch.isfinite(rew).all()), f"{label}: finite rewards")
+    if F > cfg.ticks_per_step:
+        _check(not bool(obs[:, :, :F - Fe].any())
+               and bool(obs[:, :, F - Fe:].any()),
+               f"{label}: {F - Fe} zero frames first, then drawn ones")
+    shape = tuple(obs.shape)
+    del obs
+    got = env.multi_step(st0, acts, 2)
+    want = penv.multi_step(st0, acts, 2)
+    same = ~_int_mismatch_envs(got[0], want[0])
+    n_div, max_bad = int((~same).sum()), int(MAX_DIVERGED_SHARE * N_ENVS)
+    _check(n_div <= max_bad, f"{label}: at most {max_bad} envs diverge "
+           f"({n_div})")
+    bad = int((got[1][:, same] != want[1][:, same]).sum())
+    rew_err = (got[2][:, same] - want[2][:, same]).abs().max().item()
+    _check(bad == 0 and rew_err <= TOL_REWARD
+           and bool(torch.equal(got[3][:, same], want[3][:, same])),
+           f"{label}: {bad} frame values differ, reward err {rew_err}, "
+           f"dones equal")
+    print(f"[20 multi-frame path] {label}, {N_ENVS} envs, reset + "
+          f"multi_step(k={k}), num_frames {F}: K1 launches {k1} (through "
+          f"engine_tick_raw {k1t}), {kind} kernel launches {kf}, plain calls "
+          f"{plain}; frames {shape}; against the torch backend over 2 "
+          f"steps {n_div} envs diverge, in the rest 0 frame values differ, "
+          f"max reward err {rew_err:.3g}, dones equal", flush=True)
+    del got, want
+    return k1t, kf
+
+
+def _obs_equal(kind, a, b) -> bool:
+    if kind == "gobigger":
+        return repr(a) == repr(b)
+    if kind == "ram":
+        return bool(np.allclose(a, b, rtol=1e-5, atol=1e-4))
+    return a.shape == b.shape and bool((a == b).all())
+
+
+def _gym_pair(make, steps, label, dev):
+    """The gym core on the card (kernels) against the same core with the
+    plain backend on the card: reset(seed=3) and `steps` steps of the same
+    random actions; obs, rewards and dones equal. Returns (the kernel core,
+    {counter: launches on the kernel core's steps}, kernel seconds per
+    step, host clock)."""
+    kc, pc = make("cuda"), make("torch")
+    ko, _ = kc.reset(seed=3)
+    po, _ = pc.reset(seed=3)
+    kind = kc.obs_type
+    _check(_obs_equal(kind, ko, po), f"{label}: reset obs equal")
+    FT, K2, FS, FG = _kernel_modules()
+    counts = dict(k1=0, k1_tick=0, k2=0, k3=0, k4=0, plain=0)
+    rng = np.random.default_rng(4)
+    t_k, done_steps = 0.0, 0
+    for t in range(steps):
+        act = ((float(rng.uniform(-1, 1)), float(rng.uniform(-1, 1))),
+               int(rng.integers(0, 3)))
+        c0 = (FT.launches, FT.tick_launches, K2.launches, FS.launches,
+              FG.launches, _plain_count())
+        t0 = time.perf_counter()
+        ko, kr, kd, _, _ = kc.step(act)
+        t_k += time.perf_counter() - t0
+        c1 = (FT.launches, FT.tick_launches, K2.launches, FS.launches,
+              FG.launches, _plain_count())
+        for key, a, b in zip(counts, c0, c1):
+            counts[key] += b - a
+        po, pr, pd, _, _ = pc.step(act)
+        _check(_obs_equal(kind, ko, po) and abs(kr - pr) <= TOL_REWARD
+               and kd == pd, f"{label}: step {t} equal to the plain backend "
+               f"(reward {kr} / {pr}, done {kd} / {pd})")
+        done_steps += int(kd)
+    F = getattr(kc.obs_config, "num_frames", 1)
+    frames = {"screen": "k3", "grid": "k4"}.get(kind)
+    via_tick = steps * F if frames else 0
+    _check(counts["plain"] == 0 and counts["k1"] == steps * F
+           and counts["k1_tick"] == via_tick
+           and (frames is None or counts[frames] == steps * F),
+           f"{label}: K1 {steps * F}x ({via_tick} through engine_tick_raw), "
+           f"the frame kernel {steps * F}x, plain 0x ({counts})")
+    return kc, pc, counts, t_k / steps, done_steps
+
+
+def _gym_phase(dev):
+    """Phase 21: the gym core on the card. Returns (launches by path,
+    per-obs-type kernel cores)."""
+    import os
+    import tempfile
+
+    from agarcl_tpu_torch.gym_core import AgarioCore
+    from agarcl_tpu_torch.io import checkpoint as TC
+    from agarcl_tpu_torch.tasks import load_task_core
+    FT = _kernel_modules()[0]
+    by_path, cores = {}, {}
+    paths = [("task 10 (duel, 128 screen)",
+              lambda b: load_task_core(10, device=dev, backend=b), GYM_STEPS),
+             ("task 1 (128 screen)",
+              lambda b: load_task_core(1, device=dev, backend=b), GYM_STEPS),
+             ("default world, grid num_frames 4",
+              lambda b: AgarioCore("grid", device=dev, backend=b,
+                                   num_frames=F_FRAMES), GYM_WORLD_STEPS),
+             ("default world, ram",
+              lambda b: AgarioCore("ram", device=dev, backend=b),
+              GYM_WORLD_STEPS),
+             ("default world, gobigger",
+              lambda b: AgarioCore("gobigger", device=dev, backend=b),
+              GYM_WORLD_STEPS)]
+    for label, make, steps in paths:
+        kc, pc, counts, t_step, dones = _gym_pair(make, steps, label, dev)
+        by_path[label] = counts
+        cores.setdefault(kc.obs_type, kc)
+        print(f"[21 gym core] {label}, {kc.cfg.num_players} players, arena "
+              f"{kc.cfg.arena_size}, {kc.cfg.num_pellets} pellets, "
+              f"{steps} steps on the card: equal to the plain backend's core "
+              f"(obs, rewards, dones; {dones} done steps); launches on the "
+              f"kernel core {counts}; {1e3 * t_step:.2f} ms per step "
+              f"(host clock, with the plain core's steps between)",
+              flush=True)
+        if label.startswith("task 10"):
+            snap_core = (kc, pc)
+    # a snapshot and a checkpoint saved on the card and reloaded (without
+    # action noise, whose generator would move on between the steps)
+    kc, pc = snap_core
+    kc.add_noise = pc.add_noise = False
+    act = ((0.3, -0.6), 0)
+    with tempfile.TemporaryDirectory() as d:
+        snap, ckpt = os.path.join(d, "s.json"), os.path.join(d, "c.npz")
+        kc.save_env_state(snap)
+        TC.save_checkpoint(ckpt, kc.cfg, kc.state)
+        r1 = kc.step(act)
+        _, kc.state = TC.load_checkpoint(ckpt, kc.cfg, dev)
+        r2 = kc.step(act)
+        kc.load_env_state(snap)
+        pc.load_env_state(snap)
+        r3, r4 = kc.step(act), pc.step(act)
+        kc.load_env_state(snap)
+        r5 = kc.step(act)
+    for (a, b), what in (((r1, r2), "checkpoint"), ((r3, r4), "snapshot vs "
+                         "the plain core"), ((r3, r5), "snapshot twice")):
+        _check(_obs_equal("screen", a[0], b[0]) and a[1] == b[1]
+               and a[2] == b[2], f"gym {what}: the next step is the same")
+    print(f"[21 gym snapshots] task 10 on the card: a checkpoint reloaded "
+          f"gives the same next step as the run it came from (reward "
+          f"{r1[1]:.4g}); a JSON snapshot reloaded gives the same next step "
+          f"on the kernel core twice and on the plain core (reward "
+          f"{r3[1]:.4g})", flush=True)
+    return by_path, cores
+
+
+def _gobigger_phase(cfg, dev, acts):
+    """Phase 22: VecEnv(obs_type="gobigger") at 8192 envs on the card
+    against the torch backend, reset and 2 steps."""
+    from agarcl_tpu_torch.vec import VecEnv
+    FT = _kernel_modules()[0]
+    env = VecEnv(cfg, N_ENVS, "gobigger")
+    penv = VecEnv(cfg, N_ENVS, "gobigger", backend="torch", device=dev)
+    _zero_counts()
+    s0, o0 = env.reset(0)
+    s, o, r, d = env.multi_step(s0, acts, 2)
+    torch.cuda.synchronize(dev)
+    k1, plain = FT.launches, _plain_count()
+    _check(k1 == 2 and plain == 0, f"gobigger path: K1 2x, plain 0x (K1 "
+           f"{k1}, plain {plain})")
+    ps, po, pr, pd = penv.multi_step(s0, acts, 2)
+    same = ~_int_mismatch_envs(s, ps)
+    n_div, max_bad = int((~same).sum()), int(MAX_DIVERGED_SHARE * N_ENVS)
+    _check(n_div <= max_bad, f"gobigger path: at most {max_bad} envs "
+           f"diverge ({n_div})")
+    for key in o:
+        _check(bool(torch.equal(o[key][:, same], po[key][:, same])),
+               f"gobigger path: {key} equal")
+    _check(bool(torch.equal(r[:, same], pr[:, same]))
+           and bool(torch.equal(d[:, same], pd[:, same])),
+           "gobigger path: rewards and dones equal")
+    n_foods = int(o["foods_mask"][-1].sum())
+    print(f"[22 gobigger path] {N_ENVS} envs, reset + multi_step(k=2): K1 "
+          f"launches {k1}, plain calls {plain}; foods table "
+          f"{tuple(o['foods'].shape)}, clones {tuple(o['clones'].shape)}; "
+          f"against the torch backend {n_div} envs diverge, in the rest "
+          f"every table, mask, reward and done equal; {n_foods} foods in "
+          f"view in the last frames", flush=True)
+
+
+def _frames_rate(env, acts, dev) -> float:
+    """Seconds per multi_step(k=10) call of a multi-frame VecEnv (bench.py
+    method: one warm call, median of 3 runs x 4 calls)."""
+    s, _ = env.reset(0)
+    s, o, rw, _ = env.multi_step(s, acts, K_SCREEN)
+    rw.sum().item()
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        for _ in range(4):
+            del o
+            s, o, rw, _ = env.multi_step(s, acts, K_SCREEN)
+        torch.cuda.synchronize(dev)
+        rw.sum().item()
+        times.append((time.perf_counter() - t0) / 4)
+    del o
+    return statistics.median(times)
+
+
+def _gym_rate(core, dev, steps: int = 50):
+    """(ms per gym step, host clock; device-busy ms per step, profiler, or
+    None) of a kernel core at 1 env."""
+    rng = np.random.default_rng(5)
+    acts = [((float(rng.uniform(-1, 1)), float(rng.uniform(-1, 1))), 0)
+            for _ in range(steps)]
+    core.reset(seed=1)
+    for a in acts[:5]:
+        core.step(a)
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    for a in acts:
+        core.step(a)
+    torch.cuda.synchronize(dev)
+    wall = 1e3 * (time.perf_counter() - t0) / steps
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for a in acts[:10]:
+            core.step(a)
+        torch.cuda.synchronize(dev)
+    busy = sum(getattr(e, "self_device_time_total", 0.0)
+               for e in prof.key_averages()) / 1e3 / 10
+    return wall, (busy if busy > 0 else None)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -708,7 +1063,7 @@ def main() -> int:
         out_k = fused_step.multi_step_resident(cfg, res_k, acts, n_steps,
                                                ocfg)
         out_p = fused_step.multi_step_resident(
-            cfg, res_p, acts, n_steps, ocfg, step=FT.multi_step_raw_plain)
+            cfg, res_p, acts, n_steps, ocfg, plain=True)
         return out_k, out_p
 
     s0, _ = cuda_env.reset(0)
@@ -727,7 +1082,7 @@ def main() -> int:
     torch.cuda.synchronize(dev)
     t0 = time.perf_counter()
     out40_p = fused_step.multi_step_resident(cfg, res_p, acts, k, ocfg,
-                                             step=FT.multi_step_raw_plain)
+                                             plain=True)
     torch.cuda.synchronize(dev)
     out40_p[2].sum().item()
     t_plain = time.perf_counter() - t0
@@ -838,17 +1193,16 @@ def main() -> int:
     senv = VecEnv(cfg, N, "screen", obs_config=scr)
     penv = VecEnv(cfg, N, "screen", backend="torch", device=dev,
                   obs_config=scr)
-    FT.launches = FT.plain_calls = 0
-    fused_obs.launches = fused_obs.plain_calls = 0
-    FS.launches = FS.plain_calls = 0
+    _zero_counts()
     st0, sobs0 = senv.reset(0)
     st, sobs, srew, sdone = senv.multi_step(st0, acts, K_SCREEN)
     torch.cuda.synchronize(dev)
-    s_k1, s_k3 = FT.launches, FS.launches
-    s_plain = FT.plain_calls + fused_obs.plain_calls + FS.plain_calls
-    _check(s_k1 == K_SCREEN and s_k3 == K_SCREEN + 1 and s_plain == 0,
-           f"screen path launches K1 {K_SCREEN}x, K3 {K_SCREEN + 1}x, plain "
-           f"0x (K1 {s_k1}, K3 {s_k3}, plain {s_plain})")
+    s_k1, s_k3, s_plain = FT.tick_launches, FS.launches, _plain_count()
+    _check(s_k1 == FT.launches == K_SCREEN and s_k3 == K_SCREEN + 1
+           and s_plain == 0,
+           f"screen path launches K1 {K_SCREEN}x through engine_tick_raw, "
+           f"K3 {K_SCREEN + 1}x, plain 0x (K1 {FT.launches}, through "
+           f"engine_tick_raw {s_k1}, K3 {s_k3}, plain {s_plain})")
     _check(tuple(sobs0.shape) == (N, 1, S_SCREEN, S_SCREEN, 4),
            "screen reset obs shape")
     _check(tuple(sobs.shape) == (K_SCREEN, N, 1, 1, S_SCREEN, S_SCREEN, 4)
@@ -994,19 +1348,16 @@ def main() -> int:
     genv = VecEnv(cfg, N, "grid", obs_config=gcfg)
     gpenv = VecEnv(cfg, N, "grid", backend="torch", device=dev,
                    obs_config=gcfg)
-    FT.launches = FT.plain_calls = 0
-    fused_obs.launches = fused_obs.plain_calls = 0
-    FS.launches = FS.plain_calls = 0
-    FG.launches = FG.plain_calls = 0
+    _zero_counts()
     st0, gobs0 = genv.reset(0)
     st, gobs, grew, gdone = genv.multi_step(st0, acts, K_SCREEN)
     torch.cuda.synchronize(dev)
-    g_k1, g_k4 = FT.launches, FG.launches
-    g_plain = (FT.plain_calls + fused_obs.plain_calls + FS.plain_calls
-               + FG.plain_calls)
-    _check(g_k1 == K_SCREEN and g_k4 == K_SCREEN + 1 and g_plain == 0,
-           f"grid path launches K1 {K_SCREEN}x, K4 {K_SCREEN + 1}x, plain "
-           f"0x (K1 {g_k1}, K4 {g_k4}, plain {g_plain})")
+    g_k1, g_k4, g_plain = FT.tick_launches, FG.launches, _plain_count()
+    _check(g_k1 == FT.launches == K_SCREEN and g_k4 == K_SCREEN + 1
+           and g_plain == 0,
+           f"grid path launches K1 {K_SCREEN}x through engine_tick_raw, K4 "
+           f"{K_SCREEN + 1}x, plain 0x (K1 {FT.launches}, through "
+           f"engine_tick_raw {g_k1}, K4 {g_k4}, plain {g_plain})")
     _check(tuple(gobs0.shape) == (N, 1, 8, G_GRID, G_GRID)
            and gobs0.dtype == torch.int16, "grid reset obs shape")
     _check(tuple(gobs.shape) == (K_SCREEN, N, 1, 1, 8, G_GRID, G_GRID)
@@ -1145,7 +1496,7 @@ def main() -> int:
            and bool(torch.isfinite(robs).all()), "duel RAM obs shape")
     out_p = fused_step.multi_step_resident(
         duel10, fused_step.to_resident(duel10, s), acts, k, ocfg,
-        step=FT.multi_step_raw_plain)
+        plain=True)
     e_dr = _compare_runs(duel10, (r, robs, rrew, rdone), out_p, max_bad,
                          f"duel RAM path after {k} steps")
     k1_err = max(k1_err, *e_dr[1:])
@@ -1275,10 +1626,11 @@ def main() -> int:
     ws0, wo0 = wenv.reset(0)
     ws, wo, wr, wd = wenv.multi_step(ws0, wacts, 2)
     torch.cuda.synchronize(dev)
-    w_k1, w_k3, w_plain, w_cm = (FT.launches, FS.launches, _plain_count(),
-                                 TS.class_map_calls)
-    _check((w_k1, w_k3, w_plain, w_cm) == (2, 0, 0, 3),
-           f"wavy route: K1 2x, K3 0x, plain 0x, class map 3x (K1 {w_k1}, "
+    w_k1, w_k3, w_plain, w_cm = (FT.tick_launches, FS.launches,
+                                 _plain_count(), TS.class_map_calls)
+    _check((FT.launches, w_k1, w_k3, w_plain, w_cm) == (2, 2, 0, 0, 3),
+           f"wavy route: K1 2x through engine_tick_raw, K3 0x, plain 0x, "
+           f"class map 3x (K1 {FT.launches}, through engine_tick_raw {w_k1}, "
            f"K3 {w_k3}, plain {w_plain}, class map {w_cm})")
     _check(tuple(wo.shape) == (2, N_WAVY, 1, 1, S_SCREEN, S_SCREEN, 4),
            "wavy route obs shape")
@@ -1310,11 +1662,13 @@ def main() -> int:
         s0a, o0 = env.reset(0)
         sa, oa, ra, da = env.multi_step(s0a, a2, 2)
         torch.cuda.synchronize(dev)
-        launched = (FT.launches, mod.launches, _plain_count())
-        _check(launched == (2, 3, 0), f"2 agents, {kind}: K1 2x, frame "
-               f"kernel 3x (reset + 2 steps), plain 0x {launched}")
+        launched = (FT.launches, FT.tick_launches, mod.launches,
+                    _plain_count())
+        _check(launched == (2, 2, 3, 0), f"2 agents, {kind}: K1 2x through "
+               f"engine_tick_raw, frame kernel 3x (reset + 2 steps), plain "
+               f"0x {launched}")
         a2_launch[kind] = mod.launches
-        a2_launch["k1_" + kind] = FT.launches
+        a2_launch["k1_" + kind] = FT.tick_launches
         want0 = mod.frame_plain(m0_2a, oc, FT.to_kernel_arrays(s0a))
         _check(tuple(o0.shape[:2]) == (N, 2) and torch.equal(o0, want0),
                f"2 agents, {kind}: reset frames (N, 2, ...) equal the "
@@ -1387,6 +1741,61 @@ def main() -> int:
           f"int16 {k4a_ms:.3f} ms per step, bound {k4a_bound[0]:.3f} ms by "
           f"{k4a_bound[1]} | {gpu}", flush=True)
 
+    # --- 19. K1's partial-step mode against its plain version -------------
+    k1p_err = _phase19(cfg, rosters[0][1], rosters[4][1], s2,
+                       k3_states[1][2], ocfg, dev)
+
+    # --- 20. the multi-frame paths ------------------------------------------
+    scr4 = ScreenObsConfig(S_SCREEN, agent_view=True, num_frames=F_FRAMES)
+    g4 = GridObsConfig(num_frames=F_FRAMES, grid_size=G_GRID,
+                       out_dtype="int16")
+    g6 = GridObsConfig(num_frames=6, grid_size=G_GRID, out_dtype="int16")
+    f_launch = {}
+    f_launch["screen_f4"] = _frames_path(cfg, dev, acts, scr4,
+                                         "bench.py game, 128 screen")
+    f_launch["duel_screen_f4"] = _frames_path(duel10, dev, acts, scr4,
+                                              "duel (mode 10), 128 screen")
+    f_launch["grid_f4"] = _frames_path(cfg, dev, acts, g4,
+                                       "bench.py game, 64 int16 grid")
+    f_launch["grid_f6"] = _frames_path(cfg, dev, acts, g6,
+                                       "bench.py game, 64 int16 grid, "
+                                       "num_frames 6 > 4 ticks", k=1)
+
+    # --- 21. the gym core on the card -------------------------------------
+    gym_launch, gym_cores = _gym_phase(dev)
+
+    # --- 22. GoBigger on the card -----------------------------------------
+    _gobigger_phase(cfg, dev, acts)
+
+    # --- 23. times --------------------------------------------------------
+    t_f4s = _frames_rate(VecEnv(cfg, N, "screen", obs_config=scr4), acts,
+                         dev)
+    t_f4g = _frames_rate(VecEnv(cfg, N, "grid", obs_config=g4), acts, dev)
+    planes = FT.to_kernel_arrays(s2)
+    k1p_ms = _event_ms(lambda: FT.engine_tick_raw(cfg, planes, 1), 10)
+    k1p_bound = _bound_ms(*_partial_work(cfg, N, 1))
+    k1p_plain_ms = 1e3 * _timed(lambda: FT.engine_tick_raw_plain(
+        cfg, FT.to_kernel_arrays(s2), 1), dev, 2)
+    del planes
+    gym_rates = {kind: _gym_rate(core, dev)
+                 for kind, core in sorted(gym_cores.items())}
+    print(f"[23 times] num_frames {F_FRAMES}, {N} envs, multi_step(k="
+          f"{K_SCREEN}) (one warm call, median of 3 runs x 4 calls): 128 "
+          f"screen {N * K_SCREEN / t_f4s:,.0f} env-steps/s "
+          f"({1e3 * t_f4s:.2f} ms/call), 64 int16 grid "
+          f"{N * K_SCREEN / t_f4g:,.0f} env-steps/s ({1e3 * t_f4g:.2f} "
+          f"ms/call); K1 partial-step mode, one tick without actions, "
+          f"{k1p_ms:.3f} ms per call (CUDA events, mean of 10 after 1 warm), "
+          f"bound {k1p_bound[0]:.4f} ms by {k1p_bound[1]}, plain "
+          f"{k1p_plain_ms:.2f} ms; gym core at 1 env, ms per step (host "
+          f"clock, mean of 50) / device-busy ms per step (torch.profiler, "
+          f"10 steps) / host share: "
+          + "; ".join(f"{kind} {w:.3f} / "
+                      + (f"{b:.3f} / {100 * (1 - b / w):.1f}%"
+                         if b is not None else "not measured")
+                      for kind, (w, b) in gym_rates.items())
+          + f" | {gpu}", flush=True)
+
     k1_bytes, k1_ops = _tick_work(cfg, ocfg, N, k)
     k2_bytes, k2_ops = _ram_work(cfg, ocfg, N)
     k1_bound, k2_bound = _bound_ms(k1_bytes, k1_ops), _bound_ms(k2_bytes,
@@ -1395,22 +1804,39 @@ def main() -> int:
         {"name": "multi_step_tick", "route": "cuda",
          "source": "agarcl_tpu_torch/csrc/tick.cu",
          "replaces": "agarcl_tpu/ops/fused_tick.py:163",
-         "launches": k1_launches + s_k1 + g_k1 + d_k1 + dr_k1 + m8_k1
-         + m2_k1 + p_k1 + pd_k1 + w_k1 + a2_launch["k1_screen"]
-         + a2_launch["k1_grid"],
-         "launches_by_path": {"ram": k1_launches, "screen": s_k1,
-                              "grid": g_k1, "duel_screen": d_k1,
-                              "duel_ram": dr_k1, "mode0_8bots": m8_k1,
-                              "mode0_2agents": m2_k1, "poly_screen": p_k1,
-                              "poly_duel_screen": pd_k1,
-                              "wavy_screen": w_k1,
-                              "agents2_screen": a2_launch["k1_screen"],
-                              "agents2_grid": a2_launch["k1_grid"]},
+         "launches": k1_launches + dr_k1 + m8_k1 + m2_k1
+         + sum(c["k1"] - c["k1_tick"] for c in gym_launch.values()),
+         "launches_by_path": dict(
+             {"ram": k1_launches, "duel_ram": dr_k1, "mode0_8bots": m8_k1,
+              "mode0_2agents": m2_k1},
+             **{f"gym {p}": c["k1"] - c["k1_tick"]
+                for p, c in gym_launch.items()
+                if c["k1"] > c["k1_tick"]}),
          "step_ms_by_players": step_ms,
          "step_bound_ms_by_players": {P: b[0] for P, b in step_bound.items()},
          "max_abs_err": k1_err,
          "ms": 1e3 * t_kernel, "plain_ms": 1e3 * t_plain,
          "bound_ms": k1_bound[0], "bound_by": k1_bound[1],
+         "library_ms": None},
+        {"name": "engine_tick", "route": "cuda",
+         "source": "agarcl_tpu_torch/csrc/tick.cu",
+         "replaces": "agarcl_tpu/ops/fused_tick.py:2700",
+         "launches": s_k1 + g_k1 + d_k1 + p_k1 + pd_k1 + w_k1
+         + a2_launch["k1_screen"] + a2_launch["k1_grid"]
+         + sum(v[0] for v in f_launch.values())
+         + sum(c["k1_tick"] for c in gym_launch.values()),
+         "launches_by_path": dict(
+             {"screen": s_k1, "grid": g_k1, "duel_screen": d_k1,
+              "poly_screen": p_k1, "poly_duel_screen": pd_k1,
+              "wavy_screen": w_k1,
+              "agents2_screen": a2_launch["k1_screen"],
+              "agents2_grid": a2_launch["k1_grid"]},
+             **{p: v[0] for p, v in f_launch.items()},
+             **{f"gym {p}": c["k1_tick"] for p, c in gym_launch.items()
+                if c["k1_tick"]}),
+         "max_abs_err": k1p_err,
+         "ms": k1p_ms, "plain_ms": k1p_plain_ms,
+         "bound_ms": k1p_bound[0], "bound_by": k1p_bound[1],
          "library_ms": None},
         {"name": "ram_frame", "route": "cuda",
          "source": "agarcl_tpu_torch/csrc/ram_frame.cu",
@@ -1422,10 +1848,17 @@ def main() -> int:
         {"name": "screen_frame", "route": "cuda",
          "source": "agarcl_tpu_torch/csrc/screen.cu",
          "replaces": "agarcl_tpu/ops/fused_screen.py:196",
-         "launches": s_k3 + d_k3 + p_k3 + pd_k3 + a2_launch["screen"],
-         "launches_by_path": {"screen": s_k3, "duel_screen": d_k3,
-                              "poly_screen": p_k3, "poly_duel_screen": pd_k3,
-                              "agents2_screen": a2_launch["screen"]},
+         "launches": s_k3 + d_k3 + p_k3 + pd_k3 + a2_launch["screen"]
+         + f_launch["screen_f4"][1] + f_launch["duel_screen_f4"][1]
+         + sum(c["k3"] for c in gym_launch.values()),
+         "launches_by_path": dict(
+             {"screen": s_k3, "duel_screen": d_k3, "poly_screen": p_k3,
+              "poly_duel_screen": pd_k3,
+              "agents2_screen": a2_launch["screen"],
+              "screen_f4": f_launch["screen_f4"][1],
+              "duel_screen_f4": f_launch["duel_screen_f4"][1]},
+             **{f"gym {p}": c["k3"] for p, c in gym_launch.items()
+                if c["k3"]}),
          "max_abs_err": k3_err,
          "ms": k3_ms, "plain_ms": k3_plain_ms,
          "bound_ms": k3_bound[0], "bound_by": k3_bound[1],
@@ -1436,8 +1869,14 @@ def main() -> int:
         {"name": "grid_frame", "route": "cuda",
          "source": "agarcl_tpu_torch/csrc/grid.cu",
          "replaces": "agarcl_tpu/ops/fused_grid.py:107",
-         "launches": g_k4 + a2_launch["grid"],
-         "launches_by_path": {"grid": g_k4, "agents2_grid": a2_launch["grid"]},
+         "launches": g_k4 + a2_launch["grid"] + f_launch["grid_f4"][1]
+         + f_launch["grid_f6"][1] + sum(c["k4"] for c in gym_launch.values()),
+         "launches_by_path": dict(
+             {"grid": g_k4, "agents2_grid": a2_launch["grid"],
+              "grid_f4": f_launch["grid_f4"][1],
+              "grid_f6": f_launch["grid_f6"][1]},
+             **{f"gym {p}": c["k4"] for p, c in gym_launch.items()
+                if c["k4"]}),
          "max_abs_err": k4_err,
          "ms": k4_ms, "plain_ms": k4_plain_ms,
          "bound_ms": k4_bound[0], "bound_by": k4_bound[1],

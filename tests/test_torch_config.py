@@ -47,7 +47,9 @@ def test_invalid_mode_raises():
 
 
 def test_port_runs_without_jax():
-    """Importing the port and running a CPU reset and step loads no JAX."""
+    """Importing every module of the port (the gym wrapper, tasks, io and
+    GoBigger among them) and running CPU resets and steps, the gym core's
+    too, loads no JAX."""
     code = (
         "import sys\n"
         "import torch\n"
@@ -64,6 +66,15 @@ def test_port_runs_without_jax():
         "s2, o2 = scr.reset(0)\n"
         "s2, o2, r2, d2 = scr.step(s2, torch.zeros(2, 1, 3))\n"
         "assert o2.shape == (2, 1, 1, 16, 16, 4), o2.shape\n"
+        "import importlib, pkgutil\n"
+        "for m in pkgutil.walk_packages(agarcl_tpu_torch.__path__,"
+        " 'agarcl_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "from agarcl_tpu_torch.gym_core import AgarioCore\n"
+        "core = AgarioCore('gobigger', device='cpu', arena_size=80,"
+        " num_pellets=20, mode=4)\n"
+        "core.reset(seed=1)\n"
+        "core.step(((0.5, 0.5), 0))\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in"
         " ('jax', 'jaxlib', 'flax', 'agarcl_tpu')]\n"
         "assert not bad, bad\n"

@@ -2,11 +2,11 @@
 
 Integers are held exact, f32 state to atol 2e-3 (the JAX suite's own bar,
 tests/test_fused_tick.py:30-38). The eventful scenario (virus pops,
-splits, feeds with up to 12 cells in a pile) free-runs for 12 ticks and is
-compared tick by tick from the same JAX state over 40: the relaxation of a
-crowded pile amplifies the port's rare one-ulp differences from XLA-CPU's
-fused arithmetic after about 15 ticks (ROADMAP.md, Queue 3), so a longer
-free run there measures chaos, not the engine.
+splits, feeds with up to 12 cells in a pile) free-runs for 40 ticks and is
+compared tick by tick from the same JAX state over 40, and crowded corner
+piles free-run for 12 ticks: the relaxation of a crowded pile amplifies any
+one-ulp difference from XLA-CPU's fused arithmetic, so these runs hold the
+relaxation's pinned forms (ROADMAP.md, Queue 3 item 1).
 """
 
 import functools
@@ -136,16 +136,17 @@ def test_engine_tick_eventful_each_tick(mode):
 
 @pytest.mark.parametrize("mode", [4, 1])
 def test_engine_tick_eventful_free_run(mode):
-    """12 ticks from the eventful state, each side running on its own:
-    virus pops, the splits they make and feeds, short of the tick where the
-    pile's one-ulp amplification (ROADMAP.md, Queue 3) leaves the bar."""
+    """40 ticks from the eventful state, each side running on its own:
+    virus pops, the splits they make and feeds (with the relaxation's forms
+    read off XLA's vmapped tick; before them the run left the bar after
+    about 15 ticks)."""
     cfg_j, cfg_t = _cfgs(mode)
     js = _eventful(jax.jit(jax.vmap(functools.partial(j_reset, cfg_j)))(
         jnp.arange(N, dtype=jnp.uint32) + 3))
     ts = state_from_numpy(_fields(js))
     tick = jax.jit(jax.vmap(functools.partial(j_tick, cfg_j)))
     rng = np.random.default_rng(1)
-    for t in range(12):
+    for t in range(40):
         tgt, act = _steer(rng, js)
         js = js.replace(target=jnp.asarray(tgt), action=jnp.asarray(act))
         ts = ts.replace(target=torch.from_numpy(tgt),
@@ -165,3 +166,102 @@ def test_engine_tick_refuses_bots():
     s = env_reset(cfg, torch.arange(2))
     with pytest.raises(NotImplementedError):
         t_tick(cfg, s)
+
+
+def test_transcendentals_bit_equal():
+    """XLA-CPU's f32 atan, cos and sin (glibc's atanf / cosf / sinf) are
+    pinned in geometry.atan32 / cos32 / sin32: bit-equal over 2^20 inputs
+    of each, covering direction()'s ratio (uniform, tan of uniform angles,
+    tiny and wide normals) and the virus-pop angles in (-3pi, 3pi); the
+    float64-rounded forms the port had before differ on 1-7% of them."""
+    from agarcl_tpu.engine import geometry as JG
+    from agarcl_tpu_torch.engine import geometry as G
+    rng = np.random.default_rng(1)
+    n = 1 << 20
+    x = np.concatenate([rng.uniform(-10, 10, n // 4),
+                        np.tan(rng.uniform(-1.5707, 1.5707, n // 4)),
+                        rng.standard_normal(n // 4) * 1e-3,
+                        rng.standard_normal(n // 4) * 50]).astype(np.float32)
+    a = rng.uniform(-3 * np.pi, 3 * np.pi, n).astype(np.float32)
+    v = (rng.standard_normal((n, 2))
+         * rng.choice([1e-3, 1.0, 100.0], (n, 1))).astype(np.float32)
+    v[:1000, 0] = 0.0
+    v[1000:2000, 1] = 0.0
+    v[2000:2100] = 0.0
+    pairs = [(G.atan32(torch.from_numpy(x)), jax.jit(jnp.arctan)(x)),
+             (G.cos32(torch.from_numpy(a)), jax.jit(jnp.cos)(a)),
+             (G.sin32(torch.from_numpy(a)), jax.jit(jnp.sin)(a)),
+             (G.direction(torch.from_numpy(v)), jax.jit(JG.direction)(v))]
+    for ours, ref in pairs:
+        np.testing.assert_array_equal(ours.numpy(), np.asarray(ref))
+
+
+def _pile(js, rng, centres, n=14):
+    """n cells of mass 25-300 piled within 6 of each env's centre (x = y),
+    moving at up to 30 in each axis, no recombination."""
+    d = {k: v.copy() for k, v in _fields(js).items()}
+    NE = d["ticks"].shape[0]
+    d["cell_mass"][:, 0, :n] = rng.integers(25, 300, (NE, n))
+    d["cell_alive"][:, 0, :n] = True
+    d["cell_id"][:, 0, :n] = np.arange(1, n + 1)
+    d["next_cell_id"][:] = n + 1
+    d["cell_pos"][:, 0, :n] = (np.asarray(centres)[:, None, None]
+                               + rng.uniform(-6, 6, (NE, n, 2)))
+    d["cell_vel"][:, 0, :n] = rng.uniform(-30, 30, (NE, n, 2))
+    d["cell_recombine_at"][:] = 10**6
+    return js.replace(**{k: jnp.asarray(v) for k, v in d.items()})
+
+
+def test_engine_tick_corner_pile_free_run():
+    """12 ticks of crowded 14-cell piles in a corner, each side running on
+    its own: cells pinned at the borders zero velocity components through
+    avoid_static_overlap's exact equality tests, so an ulp of difference
+    there would grow to the cell's whole speed."""
+    cfg_j, cfg_t = _cfgs(4)
+    js = jax.jit(jax.vmap(functools.partial(j_reset, cfg_j)))(
+        jnp.arange(N, dtype=jnp.uint32) + 3)
+    rng = np.random.default_rng(0)
+    js = _pile(js, rng, np.full(N, 12.0))
+    ts = state_from_numpy(_fields(js))
+    tick = jax.jit(jax.vmap(functools.partial(j_tick, cfg_j)))
+    for t in range(12):
+        c = np.asarray(js.player_centroid())[:, 0]
+        tgt = (c + rng.uniform(-20, 20, c.shape)).astype(np.float32)[:, None]
+        js = js.replace(target=jnp.asarray(tgt))
+        ts = ts.replace(target=torch.from_numpy(tgt))
+        js, ts = tick(js), t_tick(cfg_t, ts)
+        compare(js, ts, t)
+    assert int(np.asarray(js.cell_alive).sum()) >= 8 * N
+
+
+def test_relaxation_bitwise_share_ceiling():
+    """Crowded piles of 14 cells (half at a corner), each tick from the
+    same JAX state: the share of live cells whose velocity is not
+    bit-equal to jax.jit(jax.vmap(engine_tick))'s. The relaxation's fused
+    products, read off the vmapped tick (v2's first product; the
+    tangential products per output fusion), took it from 65 to 5 of 2688;
+    the rest is not pinned (ROADMAP.md, Queue 3), and this ceiling keeps
+    it from growing."""
+    NE = 64
+    kw = dict(num_agents=1, ticks_per_step=4, arena_size=110,
+              num_pellets=80, num_viruses=4, mode=4)
+    cfg_j, cfg_t = JCfg(**kw), TCfg(**kw)
+    js = jax.jit(jax.vmap(functools.partial(j_reset, cfg_j)))(
+        jnp.arange(NE, dtype=jnp.uint32) + 3)
+    tick = jax.jit(jax.vmap(functools.partial(j_tick, cfg_j)))
+    rng = np.random.default_rng(5)
+    js = _pile(js, rng, np.where(np.arange(NE) % 2 == 0, 12.0, 55.0))
+    diff = total = 0
+    for _ in range(3):
+        c = np.asarray(js.player_centroid())[:, 0]
+        tgt = (c + rng.uniform(-20, 20, c.shape)).astype(np.float32)
+        js = js.replace(target=jnp.asarray(tgt[:, None]))
+        ts = t_tick(cfg_t, state_from_numpy(_fields(js)))
+        js = tick(js)
+        alive = np.asarray(js.cell_alive)
+        ours = state_to_numpy(ts)["cell_vel"]
+        diff += int(((ours != np.asarray(js.cell_vel)).any(-1)
+                     & alive).sum())
+        total += int(alive.sum())
+    assert total == 2688
+    assert diff <= 5, f"{diff} of {total} velocities differ (ceiling 5)"

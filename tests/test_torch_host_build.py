@@ -40,10 +40,10 @@ using namespace agarcl;
 extern "C" void host_multi_step(const EnvParams* p, void* const* planes,
                                 const float* ax, const float* ay,
                                 const int* aact, float* obs, float* info,
-                                int N, int n_steps) {
+                                int N, int n_steps, int n_ticks) {
   const Planes s = planes_from(planes);
   for (int n = 0; n < N; n++)
-    multi_step_env(*p, s, n, N, ax, ay, aact, obs, info, n_steps);
+    multi_step_env(*p, s, n, N, ax, ay, aact, obs, info, n_steps, n_ticks);
 }
 extern "C" void host_grid(const EnvParams* p, const GridParams* q,
                           void* const* planes, uint8_t* out, int N) {
@@ -108,7 +108,8 @@ def host_lib(tmp_path_factory):
                    timeout=300)
     lib = ctypes.CDLL(str(so))
     vp, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.host_multi_step.argtypes = [vp, vp, vp, vp, vp, vp, vp, i32, i32]
+    lib.host_multi_step.argtypes = [vp, vp, vp, vp, vp, vp, vp, i32, i32,
+                                    i32]
     lib.host_grid.argtypes = [vp, vp, vp, vp, i32]
     lib.host_screen.argtypes = [vp, vp, vp, vp, i32]
     return lib
@@ -125,7 +126,8 @@ def _host_steps(lib, cfg, state, acts, k):
     info = torch.zeros((k, n, 2, cfg.num_players))
     lib.host_multi_step(ctypes.byref(prm), FT._ptr_array(planes),
                         ax.data_ptr(), ay.data_ptr(), aact.data_ptr(),
-                        obs.data_ptr(), info.data_ptr(), n, k)
+                        obs.data_ptr(), info.data_ptr(), n, k,
+                        cfg.ticks_per_step)
     return planes, obs, info
 
 
@@ -156,6 +158,39 @@ def _eventful(n):
     cp[:, 0, 0] = 100.0
     vp[: n // 2, 0] = 103.0
     return s.replace(cell_mass=cm, cell_pos=cp, virus_pos=vp)
+
+
+@pytest.mark.parametrize("cfg,n_ticks,with_actions", [
+    (CFG, 1, False), (CFG, 3, True), (CFG, 3, False), (DUEL, 1, False),
+    (AGENTS2, 3, True)])
+def test_tick_source_partial_step_matches_plain(host_lib, cfg, n_ticks,
+                                                with_actions):
+    """K1's partial-step mode (fused_engine_tick's counterpart): null
+    action planes skip the action phase, n_ticks ticks run, then the RAM
+    frames and info rows; equal to engine_tick_raw_plain on the eventful
+    state after two steps (planes and info exact, RAM frames to rtol 1e-5 /
+    atol 1e-4)."""
+    A = cfg.num_agents
+    s = _eventful(N) if cfg is CFG else env_reset(cfg, reset_seeds(N, 4))
+    acts = _acts(N, 3, A)
+    planes, _, _ = FT.multi_step_raw_plain(cfg, FT.to_kernel_arrays(s), acts,
+                                           2, None)
+    want = FT.engine_tick_raw_plain(
+        cfg, [p.clone() for p in planes], n_ticks, RamObsConfig(),
+        acts if with_actions else None)
+    prm = KP.env_params(cfg, RamObsConfig())
+    obs = torch.zeros((1, N, A, prm.R))
+    info = torch.zeros((1, N, 2, cfg.num_players))
+    ptr = (lambda t: t.data_ptr() if with_actions else None)
+    ax, ay, aact = FT._actions_planes(cfg, acts, N)
+    host_lib.host_multi_step(ctypes.byref(prm), FT._ptr_array(planes),
+                             ptr(ax), ptr(ay), ptr(aact), obs.data_ptr(),
+                             info.data_ptr(), N, 1, n_ticks)
+    names = [name for name, _, _ in FT._plane_specs(cfg)]
+    for name, a, b in zip(names, planes, want[0]):
+        assert torch.equal(a, b), name
+    assert torch.equal(info[0], want[2])
+    assert torch.allclose(obs[0], want[1], rtol=1e-5, atol=1e-4)
 
 
 def test_tick_source_matches_plain_on_eventful_steps(host_lib):

@@ -184,10 +184,11 @@ def test_grid_wrapper_validates_before_building(no_build):
         FG.fused_grid_frame(CFG, grid, planes,
                             out=torch.empty(4, 1, 8, 32, 32,
                                             dtype=torch.int32))
-    with pytest.raises(NotImplementedError):
-        fused_step.fused_env_step(
-            CFG, env_reset(CFG, reset_seeds(4, 0)), torch.zeros(4, 1, 3),
-            GridObsConfig(num_frames=2, grid_size=32), num_frames=2)
+    # num_frames > 1 is the partial-step chain now (it used to raise)
+    _, obs, _, _ = fused_step.fused_env_step(
+        CFG, env_reset(CFG, reset_seeds(4, 0)), torch.zeros(4, 1, 3),
+        GridObsConfig(num_frames=2, grid_size=32), num_frames=2)
+    assert tuple(obs.shape) == (4, 2, 1, 8, 32, 32)
 
 
 def test_grid_wrapper_cpu_planes_run_the_plain_version(no_build):
@@ -354,7 +355,7 @@ def test_multi_step_kernel_matches_plain(cuda_device):
     rk, ok, rwk, dk = fused_step.multi_step_resident(CFG, rk, acts, 8,
                                                      RamObsConfig())
     rp, op, rwp, dp = fused_step.multi_step_resident(
-        CFG, rp, acts, 8, RamObsConfig(), step=FT.multi_step_raw_plain)
+        CFG, rp, acts, 8, RamObsConfig(), plain=True)
     assert FT.launches == before + 1
     sk, sp = fused_step.from_resident(CFG, rk), fused_step.from_resident(CFG,
                                                                           rp)
@@ -422,7 +423,7 @@ def test_multi_step_kernel_matches_plain_with_equal_ids(cuda_device):
         CFG3, fused_step.to_resident(CFG3, s), acts, 1, None)
     rp, op, rwp, dp = fused_step.multi_step_resident(
         CFG3, fused_step.to_resident(CFG3, s), acts, 1, None,
-        step=FT.multi_step_raw_plain)
+        plain=True)
     assert FT.launches == before + 1
     sk, sp = (fused_step.from_resident(CFG3, rk),
               fused_step.from_resident(CFG3, rp))
@@ -558,7 +559,7 @@ def test_multi_step_kernel_matches_plain_with_bots(cuda_device, name):
             cfg, fused_step.to_resident(cfg, s), acts, k, RamObsConfig())
         rp, op, rwp, dp = fused_step.multi_step_resident(
             cfg, fused_step.to_resident(cfg, s), acts, k, RamObsConfig(),
-            step=FT.multi_step_raw_plain)
+            plain=True)
         assert FT.launches == before + 1
         sk, sp = (fused_step.from_resident(cfg, rk),
                   fused_step.from_resident(cfg, rp))
@@ -617,3 +618,84 @@ def test_frame_kernels_match_plain_at_two_agents(cuda_device):
         want = mod.frame_plain(cfg, ocfg, planes)
         assert got.shape == want.shape and torch.equal(got, want)
         assert not torch.equal(got[:, 0], got[:, 1])    # two cameras
+
+
+def test_engine_tick_wrapper_validates_before_building(no_build):
+    """K1's partial-step wrapper checks its arguments first, and on CPU
+    planes runs its plain version (no build, no launch)."""
+    planes = _planes()
+    with pytest.raises(ValueError, match="n_ticks"):
+        FT.engine_tick_raw(CFG, planes, -1)
+    with pytest.raises(ValueError, match="actions"):
+        FT.engine_tick_raw(CFG, planes, 1, actions=torch.zeros(3, 1, 3))
+    ten = EnvConfig(num_agents=1, num_bots=9, mode=0)
+    with pytest.raises(NotImplementedError):
+        FT.engine_tick_raw(ten, _planes(cfg=ten), 1)
+    before = FT.launches, FT.tick_launches, FT.plain_calls
+    got = FT.engine_tick_raw(CFG, planes, 2, RamObsConfig(),
+                             torch.zeros(4, 1, 3))
+    assert (FT.launches, FT.tick_launches) == before[:2]
+    assert FT.plain_calls == before[2] + 1
+    want = FT.engine_tick_raw_plain(CFG, _planes(), 2, RamObsConfig(),
+                                    torch.zeros(4, 1, 3))
+    for a, b in zip(got[0], want[0]):
+        assert torch.equal(a, b)
+    assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_ticks,with_actions,players", [
+    (1, False, 1), (3, True, 1), (3, False, 2), (1, True, 9)])
+def test_partial_step_kernel_matches_plain(cuda_device, n_ticks,
+                                           with_actions, players):
+    """K1 in partial-step mode (null action planes or actions, n ticks)
+    against engine_tick_raw_plain: integers exact, f32 within 2e-3, RAM
+    frames within rtol 1e-5 / atol 1e-4, info rows exact."""
+    cfg = {1: CFG, 2: ROSTERS["mode7"], 9: ROSTERS["P9"]}[players]
+    n = 512
+    s = (_eventful_state(n, cuda_device) if players == 1
+         else _crowd_state(cfg, n, cuda_device))
+    acts = (_roster_acts(cfg, n, cuda_device) if with_actions else None)
+    before = FT.tick_launches
+    pk, ok, ik = FT.engine_tick_raw(cfg, FT.to_kernel_arrays(s), n_ticks,
+                                    RamObsConfig(), acts)
+    pp, op, ip = FT.engine_tick_raw_plain(cfg, FT.to_kernel_arrays(s),
+                                          n_ticks, RamObsConfig(), acts)
+    assert FT.tick_launches == before + 1
+    sk = FT.from_kernel_arrays(s, pk)
+    sp = FT.from_kernel_arrays(s, pp)
+    assert int(_int_mismatch(sk, sp).sum()) == 0
+    for f in ("cell_pos", "cell_vel", "food_pos", "virus_pos", "target"):
+        torch.testing.assert_close(getattr(sk, f), getattr(sp, f), rtol=0,
+                                   atol=2e-3)
+    torch.testing.assert_close(ok, op, rtol=1e-5, atol=1e-4)
+    assert torch.equal(ik, ip)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["screen", "grid"])
+def test_multi_frame_paths_on_the_card_match_plain(cuda_device, kind):
+    """num_frames = 4 (every tick of a 4-tick step framed) through K1's
+    partial-step mode and K3 / K4, against the torch backend: frames
+    exact, rewards within 1e-5, dones equal; K1 and the frame kernel 4
+    launches a step."""
+    n = 512
+    ocfg = (ScreenObsConfig(128, agent_view=True, num_frames=4)
+            if kind == "screen"
+            else GridObsConfig(num_frames=4, grid_size=64, out_dtype="int16"))
+    mod = FS if kind == "screen" else FG
+    cuda = VecEnv(CFG, n, kind, obs_config=ocfg)
+    plain = VecEnv(CFG, n, kind, backend="torch", device=cuda_device,
+                   obs_config=ocfg)
+    s, _ = cuda.reset(3)
+    acts = torch.zeros(n, 1, 3, device=cuda_device)
+    acts[:, 0, 0] = 0.6
+    before = FT.tick_launches, mod.launches, FT.plain_calls
+    got = cuda.multi_step(s, acts, 2)
+    assert (FT.tick_launches - before[0], mod.launches - before[1]) == (8, 8)
+    assert FT.plain_calls == before[2]
+    want = plain.multi_step(s, acts, 2)
+    assert got[1].shape == want[1].shape == (2, n, 4, 1) + got[1].shape[4:]
+    assert int((got[1] != want[1]).sum()) == 0
+    torch.testing.assert_close(got[2], want[2], rtol=0, atol=1e-5)
+    assert torch.equal(got[3], want[3])

@@ -101,7 +101,8 @@ def test_step_shapes_and_obs_none():
 
 
 def test_vecenv_rejects_unported_configurations():
-    with pytest.raises(ValueError, match="gobigger"):
-        TVec(TCfg(**KW), N, "gobigger", backend="torch", device="cpu")
+    # "gobigger" is ported now; an unknown observation type still raises
+    with pytest.raises(ValueError, match="pixels"):
+        TVec(TCfg(**KW), N, "pixels", backend="torch", device="cpu")
     with pytest.raises(NotImplementedError):
         TVec(TCfg(**dict(KW, mode=0, num_bots=9)), N, "ram")
