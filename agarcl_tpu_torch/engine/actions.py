@@ -222,7 +222,8 @@ def emit_foods(cells, target, action, feed_cooldown, food_pos, food_vel,
     emit = (cells["alive"] & do_act[..., None]
             & (cells["mass"] >= C.CELL_MIN_SIZE + C.FOOD_MASS))
     d = G.normed(target[..., None, :] - cells["pos"])
-    loc = cells["pos"] + d * G.radius(cells["mass"])[..., None]
+    # the rim point fused, as XLA-CPU forms it inside the food fusion
+    loc = G.fma32(d, G.radius(cells["mass"])[..., None], cells["pos"])
     vel = d * C.FOOD_SPEED
 
     key = (torch.arange(P, dtype=torch.int32, device=dev)[:, None] * Cc

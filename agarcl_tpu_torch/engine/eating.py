@@ -171,7 +171,9 @@ def move_foods_and_feed_viruses(food_pos, food_vel, food_alive, virus_pos,
     moving = food_alive & (G.vec_norm(food_vel) > 0.0)
     pre_vel = food_vel
     new_vel = G.decelerate(food_vel, C.FOOD_DECEL, dt)
-    new_pos = G.fma32(new_vel, dt, food_pos)
+    # XLA-CPU rounds the product before the add here (no fma; read off the
+    # vmapped engine_tick's food fusion)
+    new_pos = food_pos + new_vel * dt
     rad_f = G.radius(float(C.FOOD_MASS))
     new_pos = G.boundary_clamp(new_pos, rad_f, arena_w, arena_h)
     food_pos = torch.where(moving[..., None], new_pos, food_pos)

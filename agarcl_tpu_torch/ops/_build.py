@@ -23,7 +23,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent.parent / ".kernel_build"
 SOURCES = ("ram_frame.cu", "tick.cu", "screen.cu", "grid.cu")
-HEADERS = ("common.cuh", "ram_frame.cuh")
+HEADERS = ("common.cuh", "team.cuh", "ram_frame.cuh")
 # --fmad=false: no contraction of a*b+c except the explicit __fmaf_rn sites
 # (engine/geometry.py FMA contract); IEEE division and sqrt are nvcc's
 # defaults and --use_fast_math is never given. -Xptxas -v reports each
@@ -77,6 +77,8 @@ def _declare(lib) -> None:
     lib.agarcl_multi_step.argtypes = [vp, vp, vp, vp, vp, vp, vp, i32, i32,
                                       i32, vp]
     lib.agarcl_multi_step.restype = i32
+    lib.agarcl_multi_step_shape.argtypes = [vp, i32, vp]
+    lib.agarcl_multi_step_shape.restype = i32
     lib.agarcl_screen.argtypes = [vp, vp, vp, vp, i32, vp]
     lib.agarcl_screen.restype = i32
     lib.agarcl_grid.argtypes = [vp, vp, vp, vp, i32, vp]

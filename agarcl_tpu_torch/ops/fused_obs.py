@@ -2,11 +2,11 @@
 
 Kernel K2 (csrc/ram_frame.cu) replaces the TPU kernel
 agarcl_tpu/ops/fused_obs.py::_make_obs_kernel (launched by fused_ram_obs,
-body obs_rows / _nearest_rows): one CUDA thread per (env, agent) builds the
+body obs_rows / _nearest_rows): one warp per (env, agent) builds the
 whole feature vector of obs/ram.py, picking the k nearest pellets and
 viruses as the smallest unique packed keys (obs/ram.py::pack_nearest_key)
-one at a time. The same device function writes the frames inside the
-multi-step tick kernel K1.
+one warp min-reduce at a time. The same device code writes the frames
+inside the multi-step tick kernel K1.
 
 `fused_ram_obs` launches K2 for CUDA planes and runs the plain version,
 obs/ram.py::ram_frame, only for CPU planes. `launches` counts K2 launches.

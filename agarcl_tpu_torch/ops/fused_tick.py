@@ -10,10 +10,13 @@ ticks_per_step engine ticks (engine/tick.py), then writes the step's RAM
 frame for every agent and each player's (mass, alive) row.
 
 State layout: the `_SPLIT_PLAN` planes of the JAX package — every field as
-a contiguous (feature, N) tensor with the env axis last, 41 planes. With one
-CUDA thread per env, neighbouring threads touch neighbouring addresses, so
-every state access is coalesced; the resident carrier (ops/fused_step.py)
-keeps exactly this layout between calls. Outputs are env-major, already in
+a contiguous (feature, N) tensor with the env axis last, 41 planes; the
+resident carrier (ops/fused_step.py) keeps exactly this layout between
+calls. K1 runs one warp per env, B envs a block: a block copies its envs'
+columns of the planes (B contiguous words a row) into shared memory at
+launch start and back at the end (`launch_shape` reports B, the shared
+bytes and the resident blocks per SM); a configuration whose one env does
+not fit in a block's shared memory is refused with an error. Outputs are env-major, already in
 their public layout: obs (k, N, A, R) f32 and info (k, N, 2, P) f32 (row 0
 the player masses, row 1 alive as 0/1).
 
@@ -293,6 +296,20 @@ def _launch(cfg: EnvConfig, planes, actions, k: int, n_ticks: int,
     _build.check(lib, status, "multi-step tick kernel")
     launches += 1
     return obs, info
+
+
+def launch_shape(cfg: EnvConfig, N: int) -> dict:
+    """K1's launch shape for N envs on the card: blocks, envs (warps) per
+    block, dynamic shared bytes, resident blocks per SM (the occupancy
+    API) and one env's region bytes. Raises if K1 refuses the
+    configuration (one env does not fit in a block)."""
+    lib = _build.load()
+    out = (ctypes.c_int * 5)()
+    status = lib.agarcl_multi_step_shape(
+        ctypes.byref(KP.env_params(cfg, None)), N, out)
+    _build.check(lib, status, "multi-step tick kernel shape")
+    return dict(zip(("blocks", "envs_per_block", "smem_bytes",
+                     "blocks_per_sm", "env_bytes"), out))
 
 
 def multi_step_raw(cfg: EnvConfig, planes, actions, k: int,

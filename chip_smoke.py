@@ -14,7 +14,7 @@ screen path, its RAM path and mode 0 with bots; then polygon screens and
 two agents' frames. Phases, one line each:
 
   1. toolchain: GPU name and power limit, torch and CUDA versions, nvcc,
-     kernel build time;
+     kernel build time, ptxas registers, stack and spills per kernel;
   2. K2 (RAM-frame kernel) against obs/ram.py::ram_frame on the card;
   3. K1 (multi-step tick kernel) against its plain version on the card,
      from reset(0) with random actions: obs, rewards, dones and state
@@ -25,8 +25,11 @@ two agents' frames. Phases, one line each:
      version never called; outputs finite and of the expected shapes;
   5. throughput in env-steps/s for the kernel path and the plain "torch"
      backend on the same card;
-  6. K1 alone, timed with CUDA events, with and without the RAM frame at
-     4096 to 32768 envs: the frame's share and the launch-shape scaling;
+  6. K1's launch shape at 1, 2 and 9 players (blocks, envs a block,
+     dynamic shared memory, resident blocks per SM from the occupancy
+     API; at least 2 at 1 player); K1 alone, timed with CUDA events, with
+     and without the RAM frame at 1, 64 and 4096 to 32768 envs: the
+     frame's share and the scaling;
   7. K3 (screen kernel) against its plain version on the card, 0 differing
      pixels: 8192 envs after 3 steps at S=128 agent view and S=84 natural
      RGB, a heavy-cell state (mass 400+ beside viruses) and a two-player
@@ -66,8 +69,8 @@ two agents' frames. Phases, one line each:
      through the per-step composition (mode 0 respawns) against the torch
      backend; K2 at 2 players against ram_frame;
  15. times: duel screen-path env-steps/s for both backends, K1 per k=1
-     step at 1, 2 and 9 players against its bound, the single-player RAM
-     path again beside phase 5;
+     step at 1, 2 and 9 players against its bound and from phase 7's heavy
+     state, the single-player RAM path again beside phase 5;
  16. K3 in poly mode (ScreenObsConfig(polygon_edges=True,
      polygon_virus="circle"): 5-gon pellets, 7-gon foods, 50-gon cells)
      against its plain version on phase 7's states at S=128 agent view and
@@ -108,8 +111,9 @@ two agents' frames. Phases, one line each:
  22. VecEnv(obs_type="gobigger") at 8192 envs: K1, then the plain
      gobigger_frame on the card, equal to the torch backend;
  23. times: num_frames-4 screen and grid env-steps/s, K1 per one-tick
-     partial-step call against its bound, gym steps per second at 1 env
-     per obs type with the share of a step that is host time.
+     partial-step call (CUDA events, and the kernel's own device time from
+     torch.profiler) against its bound, gym steps per second at 1 env per
+     obs type with the share of a step that is host time.
 
 Then a JSON line describing each kernel, the GPU line and, last, the
 device JSON line. Every screen and grid step runs K1 through
@@ -137,7 +141,7 @@ TOL_RAM = dict(rtol=1e-5, atol=1e-4)     # tests/test_fused_tick.py:263-264
 TOL_F32_STATE = 2e-3                     # tests/test_fused_tick.py:30-38
 TOL_REWARD = 1e-5
 MAX_DIVERGED_SHARE = 0.005               # of envs after 8 and 40 steps
-PROBE_ENVS = (4096, 8192, 16384, 32768)
+PROBE_ENVS = (1, 64, 4096, 8192, 16384, 32768)
 S_SCREEN = 128                           # bench/tasks_configs/mode_*.json
 K_SCREEN = 10                            # bench.py:76-77, non-RAM obs
 G_GRID = 64                              # bench.py:108-111, --obs grid
@@ -251,8 +255,9 @@ def _tick_work(cfg, ocfg, n: int, k: int):
     plane read and written once, the actions read, the RAM frames (with a
     RamObsConfig, one per agent) and (mass, alive) rows written; counted
     operations are the pellet-eat distance tests of one cell per player
-    and tick (6 each) and the frames' nearest-key scans (8 per pellet or
-    virus key and pick) — a lower bound of the work."""
+    and tick (6 each) and one key evaluation (8 operations) per live pellet
+    and virus (the counts the regen keeps) per frame — the least work of
+    the function, whatever selection finds the nearest keys."""
     from agarcl_tpu_torch.obs.ram import ram_size
     from agarcl_tpu_torch.ops import fused_tick as FT
     A = cfg.num_agents
@@ -262,21 +267,20 @@ def _tick_work(cfg, ocfg, n: int, k: int):
     nbytes = n * (2 * state + 12 * A + k * (frame + 8 * cfg.num_players))
     per_step = cfg.ticks_per_step * cfg.pellet_capacity * 6 * cfg.num_players
     if ocfg is not None:
-        per_step += 8 * A * (ocfg.num_pellets * cfg.pellet_capacity
-                             + ocfg.num_viruses * cfg.virus_capacity)
+        per_step += 8 * A * (cfg.num_pellets + cfg.num_viruses)
     return nbytes, n * k * per_step
 
 
 def _ram_work(cfg, ocfg, n: int):
     """Bytes and f32 operations of one K2 frame: the cell, pellet and virus
-    planes it reads once, the frame written, 8 operations per key of the
-    nearest-pellet and nearest-virus scans."""
+    planes it reads once, the frame written, one key evaluation (8
+    operations) per live pellet and virus (the counts the regen keeps) per
+    agent."""
     from agarcl_tpu_torch.obs.ram import ram_size
     cells = cfg.num_players * cfg.max_cells * (5 * 4 + 1)
     per_env = (cells + 4 * cfg.pellet_capacity + 13 * cfg.virus_capacity
                + 4 * cfg.num_agents * ram_size(cfg, ocfg))
-    ops = 8 * (ocfg.num_pellets * cfg.pellet_capacity
-               + ocfg.num_viruses * cfg.virus_capacity)
+    ops = 8 * cfg.num_agents * (cfg.num_pellets + cfg.num_viruses)
     return n * per_env, n * ops
 
 
@@ -418,11 +422,35 @@ def _device_profile(fn, dev):
     return busy / wall_us, [(k[:40], t / 1e3) for k, t in top]
 
 
+def _kernel_device_ms(fn, name: str, calls: int, dev):
+    """Device ms per call of the kernels whose name holds `name` over
+    `calls` calls of fn (torch.profiler), or None when the profiler sees
+    no device time: the kernel's own time where a call is host-bound."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize(dev)
+    for _ in range(3):          # a window whose device records are lost
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize(dev)
+        t = sum(getattr(e, "self_device_time_total", 0.0)
+                for e in prof.key_averages() if name in e.key)
+        if t > 0:
+            return t / 1e3 / calls
+    return None
+
+
 def _ptxas_summary(log: str) -> str:
-    """'kernel: N registers, M bytes smem' for each kernel in a ptxas -v
-    report."""
-    out, name = [], None
+    """'kernel: N registers, ...; S bytes stack, spills st/ld' for each
+    kernel in a ptxas -v report."""
+    out, name, frame = [], None, ""
     for line in log.splitlines():
+        if "bytes stack frame" in line and name:
+            nums = re.findall(r"(\d+) bytes", line)
+            frame = (f"; {nums[0]} bytes stack, spills {nums[1]}/{nums[2]}"
+                     if len(nums) == 3 else "")
         if "Compiling entry function" in line:
             name = line.split("'")[1]
             for short in ("multi_step_kernel", "ram_frame_kernel",
@@ -439,8 +467,8 @@ def _ptxas_summary(log: str) -> str:
                     elif short == "grid_kernel":
                         name += "<agents>" if flags[0] == "1" else "<one>"
         elif "Used" in line and name:
-            out.append(f"{name}: {line.split(':', 1)[1].strip()}")
-            name = None
+            out.append(f"{name}: {line.split(':', 1)[1].strip()}{frame}")
+            name, frame = None, ""
     return "; ".join(out) or "no ptxas report (cached build)"
 
 
@@ -1149,6 +1177,21 @@ def main() -> int:
     del r, rw
 
     # --- 6. K1 alone: frame share and launch-shape scaling ------------------
+    shapes = {}
+    for label, c in (("1 player", cfg), ("2 players", _rosters()[3][1]),
+                     ("9 players", _rosters()[4][1])):
+        shapes[label] = FT.launch_shape(c, N)
+    print(f"[6 K1 launch shape] {N} envs, a warp per env: "
+          + "; ".join(f"{label}: {sh['blocks']} blocks of "
+                      f"{sh['envs_per_block']} envs ({32 * sh['envs_per_block']}"
+                      f" threads), {sh['smem_bytes']} bytes of dynamic shared "
+                      f"memory ({sh['env_bytes']} an env), "
+                      f"{sh['blocks_per_sm']} resident blocks per SM "
+                      f"(cudaOccupancyMaxActiveBlocksPerMultiprocessor)"
+                      for label, sh in shapes.items())
+          + f" | {gpu}", flush=True)
+    _check(shapes["1 player"]["blocks_per_sm"] >= 2,
+           "at least 2 resident K1 blocks per SM at 1 player")
     for n in PROBE_ENVS:
         with_ms = _k1_event_ms(cfg, n, ocfg, k, dev)
         without_ms = _k1_event_ms(cfg, n, None, k, dev)
@@ -1552,6 +1595,12 @@ def main() -> int:
         step_ms[P] = _event_ms(lambda: FT.multi_step_raw(c, planes, acts, 1,
                                                          None), 10)
         step_bound[P] = _bound_ms(*_tick_work(c, None, N, 1))
+    # phase 7's heavy, late-game state (cells of mass 400-2500 split and
+    # popped beside viruses; the calls go on from it, as above)
+    heavy_cells = int(k3_states[1][2].cell_alive.sum()) / N
+    planes = FT.to_kernel_arrays(k3_states[1][2])
+    heavy_ms = _event_ms(lambda: FT.multi_step_raw(cfg, planes, acts, 1,
+                                                   None), 10)
     del planes
     s, _ = cuda_env.reset(0)
     r = cuda_env.make_resident(s)
@@ -1579,6 +1628,8 @@ def main() -> int:
           + "; ".join(f"{P} players {step_ms[P]:.3f} ms, bound "
                       f"{step_bound[P][0]:.4f} ms by {step_bound[P][1]}"
                       for P in step_ms)
+          + f"; K1 k=1 from phase 7's heavy state ({heavy_cells:.2f} live "
+          f"cells an env) {heavy_ms:.3f} ms per step"
           + f"; single-player RAM path again {1e3 * t_ram_again:.2f} ms per "
           f"k={k} call ({N * k / t_ram_again:,.0f} env-steps/s; phase 5: "
           f"{1e3 * t_kernel:.2f} ms) | {gpu}", flush=True)
@@ -1773,6 +1824,8 @@ def main() -> int:
     t_f4g = _frames_rate(VecEnv(cfg, N, "grid", obs_config=g4), acts, dev)
     planes = FT.to_kernel_arrays(s2)
     k1p_ms = _event_ms(lambda: FT.engine_tick_raw(cfg, planes, 1), 10)
+    k1p_dev_ms = _kernel_device_ms(lambda: FT.engine_tick_raw(cfg, planes, 1),
+                                   "multi_step_kernel", 10, dev)
     k1p_bound = _bound_ms(*_partial_work(cfg, N, 1))
     k1p_plain_ms = 1e3 * _timed(lambda: FT.engine_tick_raw_plain(
         cfg, FT.to_kernel_arrays(s2), 1), dev, 2)
@@ -1786,6 +1839,10 @@ def main() -> int:
           f"{N * K_SCREEN / t_f4g:,.0f} env-steps/s ({1e3 * t_f4g:.2f} "
           f"ms/call); K1 partial-step mode, one tick without actions, "
           f"{k1p_ms:.3f} ms per call (CUDA events, mean of 10 after 1 warm), "
+          f"of it the kernel "
+          + (f"{k1p_dev_ms:.4f} ms" if k1p_dev_ms is not None
+             else "not measured")
+          + f" (torch.profiler device time, mean of 10), "
           f"bound {k1p_bound[0]:.4f} ms by {k1p_bound[1]}, plain "
           f"{k1p_plain_ms:.2f} ms; gym core at 1 env, ms per step (host "
           f"clock, mean of 50) / device-busy ms per step (torch.profiler, "
@@ -1812,7 +1869,8 @@ def main() -> int:
              **{f"gym {p}": c["k1"] - c["k1_tick"]
                 for p, c in gym_launch.items()
                 if c["k1"] > c["k1_tick"]}),
-         "step_ms_by_players": step_ms,
+         "step_ms_by_players": step_ms, "heavy_step_ms": heavy_ms,
+         "launch_shape": shapes,
          "step_bound_ms_by_players": {P: b[0] for P, b in step_bound.items()},
          "max_abs_err": k1_err,
          "ms": 1e3 * t_kernel, "plain_ms": 1e3 * t_plain,
@@ -1835,7 +1893,7 @@ def main() -> int:
              **{f"gym {p}": c["k1_tick"] for p, c in gym_launch.items()
                 if c["k1_tick"]}),
          "max_abs_err": k1p_err,
-         "ms": k1p_ms, "plain_ms": k1p_plain_ms,
+         "ms": k1p_ms, "device_ms": k1p_dev_ms, "plain_ms": k1p_plain_ms,
          "bound_ms": k1p_bound[0], "bound_by": k1p_bound[1],
          "library_ms": None},
         {"name": "ram_frame", "route": "cuda",

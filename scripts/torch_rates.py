@@ -8,7 +8,10 @@ path (mode 10, k=10). On a tree that has them it also times the screen
 path with num_frames 4 (every tick of a step framed, k=10) and the gym
 core (gym_core.AgarioCore) at one env: the RAM step in the bench.py world
 and the screen step of task 1 (median of 3 runs of 50 steps after 10 warm
-ones, ms per step on the host clock); an older tree prints "n/a".
+ones, ms per step on the host clock); an older tree prints "n/a". Last,
+K1 alone (ops/fused_tick.py, CUDA events, median of 3 calls after a warm
+one from reset(0)): one k=40 call of the RAM path with its frames, and
+one one-tick call in partial-step mode (no actions, no frame).
 
 Times the agarcl_tpu_torch package of the current directory, so one copy
 of the script can time two trees unpacked with `git archive`, in turns
@@ -116,6 +119,28 @@ def main() -> int:
     else:
         out += [(name, None) for name in ("screen F=4 k=10", "gym ram step",
                                           "gym screen step")]
+    from agarcl_tpu_torch.env import env_reset, reset_seeds
+    from agarcl_tpu_torch.obs.ram import RamObsConfig
+    from agarcl_tpu_torch.ops import fused_tick as FT
+
+    def k1_ms(call):
+        planes = FT.to_kernel_arrays(env_reset(cfg, reset_seeds(N, 0, dev)))
+        call(planes)
+        times = []
+        for _ in range(3):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            call(planes)
+            e1.record()
+            torch.cuda.synchronize(dev)
+            times.append(e0.elapsed_time(e1))
+        return statistics.median(times)
+
+    out += [("K1 k=40 ram", k1_ms(lambda p: FT.multi_step_raw(
+                cfg, p, acts, 40, RamObsConfig()))),
+            ("K1 one tick", k1_ms(lambda p: FT.engine_tick_raw(cfg, p, 1)))
+            if hasattr(FT, "engine_tick_raw") else ("K1 one tick", None)]
     label = sys.argv[1] if len(sys.argv) > 1 else "tree"
     print(label, " | ".join(f"{k} {v:.2f} ms" if v is not None
                             else f"{k} n/a" for k, v in out), flush=True)

@@ -265,3 +265,49 @@ def test_relaxation_bitwise_share_ceiling():
         total += int(alive.sum())
     assert total == 2688
     assert diff <= 5, f"{diff} of {total} velocities differ (ceiling 5)"
+
+
+def _pop_pile(js):
+    """A 400-mass cell beside a virus in the corner of every env: the virus
+    pops it into a corner pile, and the pieces' feeds fly off the walls."""
+    d = {k: v.copy() for k, v in _fields(js).items()}
+    d["cell_mass"][:, 0, 0] = 400
+    d["cell_pos"][:, 0, 0] = 12.0
+    d["virus_pos"][:, 0] = 15.0
+    return js.replace(**{k: jnp.asarray(v) for k, v in d.items()})
+
+
+def pop_pile_ticks(ticks):
+    """(JAX state before, JAX state after) of each of `ticks` ticks of the
+    virus-pop corner pile, steered with random feeds and splits."""
+    cfg_j, _ = _cfgs(4)
+    js = _pop_pile(jax.jit(jax.vmap(functools.partial(j_reset, cfg_j)))(
+        jnp.arange(N, dtype=jnp.uint32) + 3))
+    tick = jax.jit(jax.vmap(functools.partial(j_tick, cfg_j)))
+    rng = np.random.default_rng(1)
+    out = []
+    for _ in range(ticks):
+        tgt, act = _steer(rng, js)
+        js = js.replace(target=jnp.asarray(tgt), action=jnp.asarray(act))
+        out.append((js, tick(js)))
+        js = out[-1][1]
+    return out
+
+
+def test_food_position_bit_equal_on_a_virus_pop_corner_pile():
+    """Each tick from the same JAX state, the food positions of the
+    virus-pop corner pile are bit-equal to jax.jit(jax.vmap(engine_tick))'s:
+    XLA-CPU rounds the food movement's product before the add and fuses
+    the feed's rim point fma(d, r, pos), both read off the vmapped tick's
+    food fusion (ROADMAP.md, Queue 3 item 1). The earlier forms (a fused
+    movement, a rounded rim point) differ from the first tick on."""
+    _, cfg_t = _cfgs(4)
+    steps = pop_pile_ticks(12)
+    for t, (before, after) in enumerate(steps):
+        ts = t_tick(cfg_t, state_from_numpy(_fields(before)))
+        np.testing.assert_array_equal(state_to_numpy(ts)["food_pos"],
+                                      np.asarray(after.food_pos),
+                                      err_msg=f"food_pos at tick {t}")
+    last = steps[-1][1]
+    assert int(np.asarray(last.viruses_eaten).sum()) >= N     # pops
+    assert int(np.asarray(last.food_next).sum()) > 0          # feeds
