@@ -266,35 +266,107 @@ HD float pellet_y(const EnvParams& p, int key) {
   return (float(key & 32767) + 0.5f) * p.p_invy;
 }
 
+// ------------------------------------------------------------ frames
+// Shared-memory atomics of the frame kernels (K3, K4): on the host build,
+// which runs a block's threads in turn, plain updates. Integer sums and
+// ORs, so the result is the same in any order.
+HD int shared_add(int* a, int v) {
+#ifdef __CUDA_ARCH__
+  return atomicAdd(a, v);
+#else
+  const int old = *a;
+  *a = old + v;
+  return old;
+#endif
+}
+HD unsigned long long shared_add(unsigned long long* a,
+                                 unsigned long long v) {
+#ifdef __CUDA_ARCH__
+  return atomicAdd(a, v);
+#else
+  const unsigned long long old = *a;
+  *a = old + v;
+  return old;
+#endif
+}
+HD void shared_or(int* a, int v) {
+#ifdef __CUDA_ARCH__
+  atomicOr(a, v);
+#else
+  *a |= v;
+#endif
+}
+HD void shared_or(uint32_t* a, uint32_t v) {
+#ifdef __CUDA_ARCH__
+  atomicOr(a, v);
+#else
+  *a |= v;
+#endif
+}
+
+// 16 bytes to a frame in global memory, streaming (not read again). Never
+// on shared memory: st.global.cs there faults on the card.
+HD void store16(uint8_t* dst, uint32_t a, uint32_t b, uint32_t c,
+                uint32_t d) {
+#ifdef __CUDA_ARCH__
+  __stcs(reinterpret_cast<uint4*>(dst), make_uint4(a, b, c, d));
+#else
+  const uint32_t v[4] = {a, b, c, d};
+  std::memcpy(dst, v, 16);
+#endif
+}
+
+// 16 zero bytes to shared memory (16-byte aligned)
+HD void zero16(void* dst) {
+#ifdef __CUDA_ARCH__
+  *reinterpret_cast<uint4*>(dst) = make_uint4(0, 0, 0, 0);
+#else
+  std::memset(dst, 0, 16);
+#endif
+}
+
 // The camera of a screen or grid frame: the centroid (cx, cy) and total
-// mass pm of player a's cells in env n. One agent takes the slot-order sum
-// of rounded products (the tick's section emission), more agents XLA's
-// chain of fmas (player_centroid, which the JAX table build for A > 1
-// uses); state.py::centroid_of and xla_centroid_of.
-HD void frame_camera(const Planes& s, int Cc, int a, int A, int n, int N,
-                     float& cx, float& cy, int& pm) {
+// mass pm of player a's Cc cells, from their positions x, y and masses m
+// (0 for a dead cell), staged in slot order. One agent takes the
+// slot-order sum of rounded products (the tick's section emission), more
+// agents XLA's chain of fmas (player_centroid, which the JAX table build
+// for A > 1 uses); state.py::centroid_of and xla_centroid_of.
+HD void camera_fold(const float* x, const float* y, const int* m, int Cc,
+                    bool multi, float& cx, float& cy, int& pm) {
   float tot = 0.0f, sx = 0.0f, sy = 0.0f;
   pm = 0;
-  for (int c = a * Cc; c < (a + 1) * Cc; c++) {
-    const long long i = (long long)c * N + n;
-    const int m = s.calive[i] ? s.cmass[i] : 0;
-    const float w = float(m);
+  for (int c = 0; c < Cc; c++) {
+    const float w = float(m[c]);
     tot = tot + w;
-    if (A == 1) {
-      sx = sx + s.cx[i] * w;
-      sy = sy + s.cy[i] * w;
-    } else if (c == a * Cc) {
-      sx = s.cx[i] * w;
-      sy = s.cy[i] * w;
+    if (!multi) {
+      sx = sx + x[c] * w;
+      sy = sy + y[c] * w;
+    } else if (c == 0) {
+      sx = x[c] * w;
+      sy = y[c] * w;
     } else {
-      sx = FMAF(s.cx[i], w, sx);
-      sy = FMAF(s.cy[i], w, sy);
+      sx = FMAF(x[c], w, sx);
+      sy = FMAF(y[c], w, sy);
     }
-    pm += m;
+    pm += m[c];
   }
   const float den = fmaxf(tot, 1.0f);
   cx = sx / den;
   cy = sy / den;
+}
+
+// Stage player a's cells of env n for camera_fold: thread tid of nthr
+// loads slots tid, tid + nthr, ... (the loads of all slots in flight at
+// once; a dead cell's mass as 0).
+HD void camera_stage(const Planes& s, int Cc, int a, int n, int N, float* x,
+                     float* y, int* m, int tid, int nthr) {
+  for (int c = tid; c < Cc; c += nthr) {
+    const long long i = (long long)(a * Cc + c) * N + n;
+    const int mass = s.cmass[i];    // loaded with the flag, not after it
+    x[c] = s.cx[i];
+    y[c] = s.cy[i];
+    m[c] = s.calive[i] ? mass : 0;
+  }
 }
 
 }  // namespace agarcl

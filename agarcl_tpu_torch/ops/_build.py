@@ -83,6 +83,10 @@ def _declare(lib) -> None:
     lib.agarcl_screen.restype = i32
     lib.agarcl_grid.argtypes = [vp, vp, vp, vp, i32, vp]
     lib.agarcl_grid.restype = i32
+    lib.agarcl_screen_shape.argtypes = [vp, i32, vp]
+    lib.agarcl_screen_shape.restype = i32
+    lib.agarcl_grid_shape.argtypes = [vp, i32, vp]
+    lib.agarcl_grid_shape.restype = i32
     lib.agarcl_error_string.argtypes = [i32]
     lib.agarcl_error_string.restype = ctypes.c_char_p
 

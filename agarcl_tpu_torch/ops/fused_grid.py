@@ -7,7 +7,8 @@ section emission (fused_tick.py:2436-2457) and the XLA table build of its
 multi-agent rows (`_build_grid_table(agents=A)`): one thread block per
 (env, agent) builds the agent's camera and entity bins straight from the K1
 planes, counts pellets in a shared-memory histogram and writes the selected
-channels.
+channels in 16-byte runs. `launch_params` keeps the launch's parameter
+blocks per configuration.
 
 The plain version is two functions: `grid_sections`, the emission (the 13
 input sections of `section_meta`, computed from the planes for one agent),
@@ -24,6 +25,7 @@ only for CPU planes; `launches` and `plain_calls` count which ran.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -144,6 +146,27 @@ def grid_params(cfg: EnvConfig, ocfg: GridObsConfig) -> GridParams:
     return q
 
 
+@functools.lru_cache(maxsize=64)
+def launch_params(cfg: EnvConfig, ocfg: GridObsConfig):
+    """(EnvParams, GridParams) of a K4 launch, built once per
+    configuration (both configs are frozen and hash; a new one is a new
+    key). The launches pass them by pointer and never change them."""
+    return KP.launch_env_params(cfg, None), grid_params(cfg, ocfg)
+
+
+def launch_shape(cfg: EnvConfig, ocfg: GridObsConfig, N: int) -> dict:
+    """K4's launch shape for N envs on the card: blocks, threads a block,
+    dynamic shared bytes and resident blocks per SM (the occupancy
+    API)."""
+    lib = _build.load()
+    out = (ctypes.c_int * 4)()
+    status = lib.agarcl_grid_shape(ctypes.byref(launch_params(cfg, ocfg)[1]),
+                                   N, out)
+    _build.check(lib, status, "grid kernel shape")
+    return dict(zip(("blocks", "threads", "smem_bytes", "blocks_per_sm"),
+                    out))
+
+
 def _check_out(out, shape, dtype, dev) -> None:
     if (out.device != dev or out.dtype != dtype
             or tuple(out.shape) != shape or not out.is_contiguous()):
@@ -180,8 +203,7 @@ def fused_grid_frame(cfg: EnvConfig, ocfg: GridObsConfig, planes,
     if out is None:
         out = torch.empty(shape, dtype=dtype, device=dev)
     lib = _build.load()
-    prm = KP.env_params(cfg, None)
-    q = grid_params(cfg, ocfg)
+    prm, q = launch_params(cfg, ocfg)
     stream = torch.cuda.current_stream(dev).cuda_stream
     status = lib.agarcl_grid(ctypes.byref(prm), ctypes.byref(q),
                              _ptr_array(planes), out.data_ptr(), N, stream)

@@ -7,8 +7,11 @@ _rasterize_sections and _rasterize_table), in circle mode and in `poly`
 mode, together with the tick kernel's `screen_tab` section emission
 (fused_tick.py:2459-2502) and the XLA table build of its multi-agent rows
 (`_build_table(agents=A)`): one thread block per (env, agent) builds the
-agent's camera and entity rows straight from the K1 planes, draws the
-class map in shared memory and writes packed pixels.
+agent's camera and entity rows straight from the K1 planes, draws each
+class's coverage as bit planes in shared memory (a pixel takes the
+largest class id that covers it, which is the draw order) and writes
+packed pixels. `launch_params` keeps the launch's parameter blocks per
+configuration.
 
 The plain version is two functions: `screen_sections`, the emission (the 16
 input sections of `section_meta`, computed from the planes for one agent),
@@ -49,6 +52,7 @@ on the planes' device.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import numpy as np
@@ -75,7 +79,7 @@ launches = 0          # K3 launches
 plain_calls = 0       # frame_plain calls
 _F32 = np.float32
 _PARK = 1e9           # coordinate of a dead lane (fused_tick.py _DEAD)
-MAX_SCREEN = 448      # K3 keeps the S x S class map in shared memory
+MAX_SCREEN = 544      # K3's bit planes and entity list fit a block
 MAX_POLY_SCREEN = 128  # poly mode's limit (pixel rows ride TPU lanes)
 MAX_LINES = 64        # half-plane lines of one fan in ScreenParams
 _HUGE = float(_F32(3.0e38))
@@ -434,6 +438,28 @@ def screen_params(cfg: EnvConfig, ocfg: ScreenObsConfig) -> ScreenParams:
     return q
 
 
+@functools.lru_cache(maxsize=64)
+def launch_params(cfg: EnvConfig, ocfg: ScreenObsConfig):
+    """(EnvParams, ScreenParams) of a K3 launch, built once per
+    configuration (both configs are frozen and hash; a new one is a new
+    key). The launches pass them by pointer and never change them."""
+    return KP.launch_env_params(cfg, None), screen_params(cfg, ocfg)
+
+
+def launch_shape(cfg: EnvConfig, ocfg: ScreenObsConfig, N: int) -> dict:
+    """K3's launch shape for N envs on the card: blocks, threads a block,
+    dynamic shared bytes and resident blocks per SM (the occupancy
+    API)."""
+    lib = _build.load()
+    out = (ctypes.c_int * 4)()
+    status = lib.agarcl_screen_shape(ctypes.byref(launch_params(cfg,
+                                                                ocfg)[1]),
+                                     N, out)
+    _build.check(lib, status, "screen kernel shape")
+    return dict(zip(("blocks", "threads", "smem_bytes", "blocks_per_sm"),
+                    out))
+
+
 def _check_out(out, N: int, A: int, S: int, ch: int, dev) -> None:
     shape = (N, A, S, S, ch)
     if (out.device != dev or out.dtype != torch.uint8
@@ -469,8 +495,7 @@ def fused_screen_frame(cfg: EnvConfig, ocfg: ScreenObsConfig, planes,
     if out is None:
         out = torch.empty((N, A, S, S, ch), dtype=torch.uint8, device=dev)
     lib = _build.load()
-    prm = KP.env_params(cfg, None)
-    q = screen_params(cfg, ocfg)
+    prm, q = launch_params(cfg, ocfg)
     stream = torch.cuda.current_stream(dev).cuda_stream
     status = lib.agarcl_screen(ctypes.byref(prm), ctypes.byref(q),
                                _ptr_array(planes), out.data_ptr(), N, stream)

@@ -33,6 +33,7 @@ counts every K1 launch, `tick_launches` those made through engine_tick_raw.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -195,8 +196,10 @@ def engine_tick_raw_plain(cfg: EnvConfig, planes, n_ticks: int,
     return planes, (obs[0] if obs is not None else None), info[0]
 
 
+@functools.lru_cache(maxsize=64)
 def _plane_specs(cfg: EnvConfig):
-    """(field name, rows, dtype) of every plane, in SPLIT_PLAN order."""
+    """(field name, rows, dtype) of every plane, in SPLIT_PLAN order; built
+    once per configuration (every launch checks its planes against it)."""
     P, Cc, K = cfg.num_players, cfg.max_cells, cfg.virus_ticks_capacity
     f32, i32, b = torch.float32, torch.int32, torch.bool
     rows = {"s": 1, "p": P}
@@ -220,7 +223,7 @@ def _plane_specs(cfg: EnvConfig):
         r = rows.get(kind, widths.get(name, P))
         dt = dtypes.get(name, i32)
         specs += [(name, r, dt)] * (2 if kind in ("v2", "v2p", "v2c") else 1)
-    return specs
+    return tuple(specs)
 
 
 def check_planes(cfg: EnvConfig, planes) -> int:
@@ -288,7 +291,7 @@ def _launch(cfg: EnvConfig, planes, actions, k: int, n_ticks: int,
     if actions is not None:
         ax, ay, aact = _actions_planes(cfg, actions, N)
     lib = _build.load()
-    prm = KP.env_params(cfg, ocfg)
+    prm = KP.launch_env_params(cfg, ocfg)
     status = lib.agarcl_multi_step(
         ctypes.byref(prm), _ptr_array(planes), ptr(ax), ptr(ay), ptr(aact),
         ptr(obs), info.data_ptr(), N, k, n_ticks,
@@ -306,7 +309,7 @@ def launch_shape(cfg: EnvConfig, N: int) -> dict:
     lib = _build.load()
     out = (ctypes.c_int * 5)()
     status = lib.agarcl_multi_step_shape(
-        ctypes.byref(KP.env_params(cfg, None)), N, out)
+        ctypes.byref(KP.launch_env_params(cfg, None)), N, out)
     _build.check(lib, status, "multi-step tick kernel shape")
     return dict(zip(("blocks", "envs_per_block", "smem_bytes",
                      "blocks_per_sm", "env_bytes"), out))

@@ -1,5 +1,8 @@
 """The parameter block the CUDA kernels take (struct EnvParams in
-csrc/common.cuh), computed once per configuration on the host.
+csrc/common.cuh), computed once per configuration on the host:
+`launch_env_params` keeps one block per (EnvConfig, RamObsConfig), both
+frozen and hashable, for the launch paths, so a launch does not rebuild
+it (a new configuration is a new key, and gets a new block).
 
 Constants that the plain engine forms in float64 and rounds to f32 (the
 virus spawn range, the pellet decode scales) are rounded here the same way
@@ -9,6 +12,7 @@ and handed to the kernels as f32 values, so both sides use the same bits.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 
@@ -70,3 +74,11 @@ def env_params(cfg: EnvConfig, ocfg: RamObsConfig | None) -> EnvParams:
         n_bots=sum(t > 0 for t in types),
         bot_type=(ctypes.c_int * MAX_PLAYERS)(*types),
     )
+
+
+@functools.lru_cache(maxsize=64)
+def launch_env_params(cfg: EnvConfig,
+                      ocfg: RamObsConfig | None) -> EnvParams:
+    """env_params(cfg, ocfg), built once per configuration: the block the
+    launches pass by pointer (never changed after it is built)."""
+    return env_params(cfg, ocfg)

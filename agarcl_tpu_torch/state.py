@@ -210,7 +210,7 @@ def frame_centroid(pos, mass, alive, agents: int):
     (`centroid_of`) with one agent, as the tick's section emission forms
     it; XLA's fma chain (`xla_centroid_of`) with more, as the JAX table
     build for A > 1 takes it from player_centroid(). csrc/common.cuh
-    frame_camera is the kernels' copy."""
+    camera_fold is the kernels' copy."""
     return (xla_centroid_of if agents > 1 else centroid_of)(pos, mass, alive)
 
 

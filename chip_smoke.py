@@ -33,7 +33,8 @@ two agents' frames. Phases, one line each:
   7. K3 (screen kernel) against its plain version on the card, 0 differing
      pixels: 8192 envs after 3 steps at S=128 agent view and S=84 natural
      RGB, a heavy-cell state (mass 400+ beside viruses) and a two-player
-     state (other players drawn);
+     state (other players drawn); S=512 natural RGB at 1024 envs (above
+     the 448 pixels of the first K3's byte class map);
   8. the screen main path: reset + multi_step(k=10) launches K1 10 times
      and K3 11 times and no plain version, (10, 8192, 1, 1, 128, 128, 4)
      uint8 frames, finite rewards; one k=10 call of the plain "torch"
@@ -41,7 +42,11 @@ two agents' frames. Phases, one line each:
      then the per-step composition (auto_reset, respawn_main_during_obs,
      64 dead main players) for 2 steps against the torch backend;
   9. times: screen-path env-steps/s for both backends, K3 alone per frame
-     (CUDA events) against its bound, K1 at k=1 per step;
+     (CUDA events) against its bound at S=128 agent view and S=84 natural
+     RGB, K1 at k=1 per step; K3's launch shape (blocks, threads, dynamic
+     shared memory, resident blocks per SM from the occupancy API); the
+     device's busy share of a screen call from CUDA events (the port's
+     kernel times over the call's wall time) beside torch.profiler's;
  10. K4 (grid kernel) against its plain version on the card, 0 differing
      values: 8192 envs after 3 steps at G=64 int16, G=128 int32 and G=32
      int8, a heavy-cell state, a two-player state (others' min and max),
@@ -54,7 +59,8 @@ two agents' frames. Phases, one line each:
  12. times: grid-path env-steps/s for both backends, K4 alone per frame
      (CUDA events) against its bound at G=64 int16 and G=128 int32, the
      plain section build, the device's busy share of one profiled call, K1
-     at k=1 per step against its plain version;
+     at k=1 per step against its plain version; K4's launch shapes and the
+     busy share from CUDA events, as in 9;
  13. K1 with bots and cross-player eating against its plain version: the
      duel task configurations (bench/tasks_configs/mode_7.json to
      mode_10.json: one agent against one scripted bot, arena 350, 500
@@ -88,7 +94,8 @@ two agents' frames. Phases, one line each:
  18. times: polygon screen-path env-steps/s for both backends, K3 poly
      per frame against its bound and against circle mode on the same
      state, the wavy route per step, K3 and K4 per step at 2 agents
-     against their bounds;
+     against their bounds; the launch shapes of K3 in poly mode and of K3
+     and K4 at 2 agents;
  19. K1 with a tick count (fused_tick.engine_tick_raw: n ticks with no
      action phase, or with one, then the RAM frame and info rows) against
      engine_tick_raw_plain on a played and a heavy state of the bench.py
@@ -465,11 +472,34 @@ def _ptxas_summary(log: str) -> str:
                             "poly" if flags[0] == "1" else "circle",
                             "agents" if flags[1] == "1" else "one")
                     elif short == "grid_kernel":
-                        name += "<agents>" if flags[0] == "1" else "<one>"
+                        elem = re.findall(r"Li([124])E", line)
+                        name += "<{},{}>".format(
+                            "agents" if flags[0] == "1" else "one",
+                            f"int{8 * int(elem[0])}" if elem else "?")
         elif "Used" in line and name:
             out.append(f"{name}: {line.split(':', 1)[1].strip()}{frame}")
             name, frame = None, ""
     return "; ".join(out) or "no ptxas report (cached build)"
+
+
+def _shape_text(shape: dict) -> str:
+    """One kernel's launch shape (FS / FG.launch_shape) as text."""
+    return (f"{shape['blocks']} blocks of {shape['threads']} threads, "
+            f"{shape['smem_bytes']} bytes of dynamic shared memory, "
+            f"{shape['blocks_per_sm']} resident blocks per SM")
+
+
+def _busy_text(parts, wall_s: float, prof) -> str:
+    """The device's busy share of a call: the sum of its kernels' CUDA-event
+    times (parts: (launches, ms per launch)) over the call's wall time,
+    beside torch.profiler's busy share (prof, _device_profile's)."""
+    busy = sum(n * ms for n, ms in parts) / (1e3 * wall_s)
+    pt = ("not measured (the profiler saw no device time)" if prof is None
+          else f"{100 * prof[0]:.1f}%")
+    return (f"device busy {100 * busy:.1f}% of the call's wall time by CUDA "
+            f"events (the port's kernels: "
+            + " + ".join(f"{n} x {ms:.3f} ms" for n, ms in parts)
+            + f"), {pt} by torch.profiler (which slows the host)")
 
 
 def _k1_event_ms(cfg, n: int, ocfg, k: int, dev, reps: int = 3) -> float:
@@ -1225,6 +1255,16 @@ def main() -> int:
                   f"plain frame ({colours} colours drawn)", flush=True)
         if label == "two players":
             _check(bool((ref[..., 1] == 255).any()), "other player drawn")
+    big = ScreenObsConfig(512, agent_view=False)
+    sub = [p[:, :1024].contiguous() for p in FT.to_kernel_arrays(s2)]
+    got, ref = FS.fused_screen_frame(cfg, big, sub), FS.frame_plain(cfg, big,
+                                                                     sub)
+    bad = int((got != ref).any(-1).sum())
+    _check(bad == 0, f"K3 vs plain at S=512: {bad} pixels differ")
+    print(f"[7 K3 screen] played, 1024 envs, S=512 natural RGB (above the "
+          f"448 of the byte class map; MAX_SCREEN {FS.MAX_SCREEN}): 0 of "
+          f"{1024 * 512 ** 2} pixels differ from the plain frame", flush=True)
+    del got, ref, sub
     planes2 = FT.to_kernel_arrays(s2)
     k3_ms = _event_ms(lambda: FS.fused_screen_frame(cfg, scr, planes2), 10)
     k3_plain_ms = 1e3 * _timed(lambda: FS.frame_plain(cfg, scr, planes2),
@@ -1331,6 +1371,12 @@ def main() -> int:
     prof = _device_profile(lambda: senv.multi_step(s, acts, K_SCREEN), dev)
     k1_step_ms = _event_ms(lambda: FT.multi_step_raw(cfg, planes2, acts, 1,
                                                      None), 10)
+    pl = [p.clone() for p in planes2]
+    k1_tick4_ms = _event_ms(lambda: FT.engine_tick_raw(
+        cfg, pl, cfg.ticks_per_step, actions=acts), 10)
+    del pl
+    k3_shape = FS.launch_shape(cfg, scr, N)
+    k3_nat_shape = FS.launch_shape(cfg, nat, N)
     k1_step_bound = _bound_ms(*_tick_work(cfg, None, N, 1))
     print(f"[9 screen times] {N} envs, multi_step(k={K_SCREEN}), S="
           f"{S_SCREEN}: kernel {N * K_SCREEN / t_screen:,.0f} env-steps/s "
@@ -1342,7 +1388,8 @@ def main() -> int:
           f"{k3_ops / 1e9:.3f} G f32 ops), {100 * k3_bound[0] / k3_ms:.1f}% "
           f"of bound; plain frame {k3_plain_ms:.2f} ms; K3 at S=84 natural "
           f"RGB {k3_nat_ms:.3f} ms/frame, bound {k3_nat_bound[0]:.3f} ms by "
-          f"{k3_nat_bound[1]}; K1 k=1 {k1_step_ms:.3f} ms/step, bound "
+          f"{k3_nat_bound[1]}, {100 * k3_nat_bound[0] / k3_nat_ms:.1f}% of "
+          f"bound; K1 k=1 {k1_step_ms:.3f} ms/step, bound "
           f"{k1_step_bound[0]:.3f} ms by {k1_step_bound[1]} | {gpu}",
           flush=True)
     busy = ("not measured (the profiler saw no device time)" if prof is None
@@ -1350,6 +1397,13 @@ def main() -> int:
             + ", ".join(f"{k} {t:.2f} ms" for k, t in prof[1]))
     print(f"[9 screen profile] one multi_step(k={K_SCREEN}) under "
           f"torch.profiler: device busy {busy}", flush=True)
+    print(f"[9 screen shape] K3 at S={S_SCREEN} agent view: "
+          f"{_shape_text(k3_shape)}; at S=84 natural RGB: "
+          f"{_shape_text(k3_nat_shape)}; screen call "
+          + _busy_text([(K_SCREEN, k1_tick4_ms), (K_SCREEN, k3_ms)], t_screen,
+                       prof)
+          + f" (K1 with actions and {cfg.ticks_per_step} ticks per step, "
+          f"CUDA events)", flush=True)
 
     # --- 10. K4 against its plain version ------------------------------------
     gcfg = GridObsConfig(grid_size=G_GRID, out_dtype="int16")
@@ -1487,6 +1541,8 @@ def main() -> int:
     k4_bytes, k4_ops = _grid_work(cfg, gcfg, N)
     k4_bound = _bound_ms(k4_bytes, k4_ops)
     k4_big_bound = _bound_ms(*_grid_work(cfg, big_g, N))
+    k4_shape = FG.launch_shape(cfg, gcfg, N)
+    k4_big_shape = FG.launch_shape(cfg, big_g, N)
     k4_plain_ms = 1e3 * _timed(lambda: FG.frame_plain(cfg, gcfg, planes2),
                                dev, 3)
     sec_plain_ms = 1e3 * _timed(lambda: FG.grid_sections(cfg, planes2), dev,
@@ -1513,6 +1569,11 @@ def main() -> int:
              + ", ".join(f"{k} {t:.2f} ms" for k, t in gprof[1]))
     print(f"[12 grid profile] one multi_step(k={K_SCREEN}) under "
           f"torch.profiler: device busy {gbusy}", flush=True)
+    print(f"[12 grid shape] K4 at G={G_GRID} int16: {_shape_text(k4_shape)}; "
+          f"at G=128 int32: {_shape_text(k4_big_shape)}; grid call "
+          + _busy_text([(K_SCREEN, k1_tick4_ms), (K_SCREEN, k4_ms)], t_grid,
+                       gprof)
+          + " (K1 as in phase 9)", flush=True)
 
     # --- 13. K1 with bots against its plain version ----------------------
     k1_mp_err = _phase13(dev, ocfg)
@@ -1773,6 +1834,9 @@ def main() -> int:
     k3a_ms = _event_ms(lambda: FS.fused_screen_frame(m0_2a, scr, a2_planes),
                        10)
     k3a_bound = _bound_ms(*_screen_work(m0_2a, scr, a2_planes))
+    k3p_shape = FS.launch_shape(cfg, poly, N)
+    k3a_shape = FS.launch_shape(m0_2a, scr, N)
+    k4a_shape = FG.launch_shape(m0_2a, gcfg, N)
     k4a_ms = _event_ms(lambda: FG.fused_grid_frame(m0_2a, gcfg, a2_planes),
                        10)
     k4a_bound = _bound_ms(*_grid_work(m0_2a, gcfg, N))
@@ -1788,9 +1852,14 @@ def main() -> int:
           f"frame {k3p_plain_ms:.2f} ms; wavy route {1e3 * t_w:.2f} ms per "
           f"step at {N_WAVY} envs (K1 + class map, host clock); 2 agents "
           f"(mode 0, {2 * N} frames per call): K3 {k3a_ms:.3f} ms per step, "
-          f"bound {k3a_bound[0]:.3f} ms by {k3a_bound[1]}; K4 G={G_GRID} "
+          f"bound {k3a_bound[0]:.3f} ms by {k3a_bound[1]}, "
+          f"{100 * k3a_bound[0] / k3a_ms:.1f}% of bound; K4 G={G_GRID} "
           f"int16 {k4a_ms:.3f} ms per step, bound {k4a_bound[0]:.3f} ms by "
-          f"{k4a_bound[1]} | {gpu}", flush=True)
+          f"{k4a_bound[1]}, {100 * k4a_bound[0] / k4a_ms:.1f}% of bound "
+          f"| {gpu}", flush=True)
+    print(f"[18 shapes] K3 poly: {_shape_text(k3p_shape)}; K3 at 2 agents: "
+          f"{_shape_text(k3a_shape)}; K4 at 2 agents: "
+          f"{_shape_text(k4a_shape)}", flush=True)
 
     # --- 19. K1's partial-step mode against its plain version -------------
     k1p_err = _phase19(cfg, rosters[0][1], rosters[4][1], s2,
@@ -1923,6 +1992,9 @@ def main() -> int:
          "poly_ms": k3p_ms, "poly_circle_ms": k3c_ms,
          "poly_plain_ms": k3p_plain_ms, "poly_bound_ms": k3p_bound[0],
          "agents2_ms": k3a_ms, "agents2_bound_ms": k3a_bound[0],
+         "nat84_ms": k3_nat_ms, "nat84_bound_ms": k3_nat_bound[0],
+         "launch_shape": {"agent_view": k3_shape, "nat84": k3_nat_shape,
+                          "poly": k3p_shape, "agents2": k3a_shape},
          "library_ms": None},
         {"name": "grid_frame", "route": "cuda",
          "source": "agarcl_tpu_torch/csrc/grid.cu",
@@ -1939,6 +2011,9 @@ def main() -> int:
          "ms": k4_ms, "plain_ms": k4_plain_ms,
          "bound_ms": k4_bound[0], "bound_by": k4_bound[1],
          "agents2_ms": k4a_ms, "agents2_bound_ms": k4a_bound[0],
+         "g128_int32_ms": k4_big_ms, "g128_int32_bound_ms": k4_big_bound[0],
+         "launch_shape": {"g64_int16": k4_shape, "g128_int32": k4_big_shape,
+                          "agents2": k4a_shape},
          "library_ms": None},
     ]}))
     print(gpu)

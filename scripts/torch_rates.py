@@ -11,7 +11,12 @@ and the screen step of task 1 (median of 3 runs of 50 steps after 10 warm
 ones, ms per step on the host clock); an older tree prints "n/a". Last,
 K1 alone (ops/fused_tick.py, CUDA events, median of 3 calls after a warm
 one from reset(0)): one k=40 call of the RAM path with its frames, and
-one one-tick call in partial-step mode (no actions, no frame).
+one one-tick call in partial-step mode (no actions, no frame). Then K3
+(128 x 128 agent view) and K4 (64 x 64 int16) per frame on CUDA events
+(mean of 10 calls after a warm one, from the state after 10 steps), and
+the host microseconds per launch of the wrappers of K1 (one tick), K3
+and K4 (host clock over 200 calls, before the synchronize: the checks,
+the parameter blocks and the launch, not the kernel).
 
 Times the agarcl_tpu_torch package of the current directory, so one copy
 of the script can time two trees unpacked with `git archive`, in turns
@@ -141,9 +146,43 @@ def main() -> int:
                 cfg, p, acts, 40, RamObsConfig()))),
             ("K1 one tick", k1_ms(lambda p: FT.engine_tick_raw(cfg, p, 1)))
             if hasattr(FT, "engine_tick_raw") else ("K1 one tick", None)]
+    from agarcl_tpu_torch.ops import fused_grid as FG
+    from agarcl_tpu_torch.ops import fused_screen as FS
+    planes = FT.to_kernel_arrays(env_reset(cfg, reset_seeds(N, 0, dev)))
+    FT.multi_step_raw(cfg, planes, acts, 10, None)
+
+    def frame_ms(call):
+        call()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        for _ in range(10):
+            call()
+        e1.record()
+        torch.cuda.synchronize(dev)
+        return e0.elapsed_time(e1) / 10
+
+    def host_us(call, reps=200):
+        call()
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            call()
+        t = time.perf_counter() - t0
+        torch.cuda.synchronize(dev)
+        return 1e6 * t / reps
+
+    k3 = (lambda: FS.fused_screen_frame(cfg, scr, planes))
+    k4 = (lambda: FG.fused_grid_frame(cfg, grid, planes))
+    out += [("K3 frame", frame_ms(k3)), ("K4 frame", frame_ms(k4))]
+    us = [("K1 one tick", host_us(lambda: FT.engine_tick_raw(cfg, planes,
+                                                             1))),
+          ("K3", host_us(k3)), ("K4", host_us(k4))]
     label = sys.argv[1] if len(sys.argv) > 1 else "tree"
     print(label, " | ".join(f"{k} {v:.2f} ms" if v is not None
-                            else f"{k} n/a" for k, v in out), flush=True)
+                            else f"{k} n/a" for k, v in out)
+          + " | host us per launch: "
+          + ", ".join(f"{k} {v:.1f}" for k, v in us), flush=True)
     return 0
 
 

@@ -48,40 +48,37 @@ extern "C" void host_multi_step(const EnvParams* p, void* const* planes,
 extern "C" void host_grid(const EnvParams* p, const GridParams* q,
                           void* const* planes, uint8_t* out, int N) {
   const Planes s = planes_from(planes);
-  const int G = q->G;
-  std::vector<int> hist(G * G);
-  std::vector<uint8_t> flags(2 * G);
-  std::vector<GridEnt> ents(GRID_MAX_ENTS);
-  float cam[3];
-  int nent;
+  const int G = q->G, e = q->elem;
+  std::vector<uint8_t> smem(grid_scratch(G));
   for (int b = 0; b < N * q->A; b++) {
-    uint8_t* o = out + (long long)b * q->C * G * G * q->elem;
-    if (q->A > 1)
-      grid_env<true>(*p, *q, s, b / q->A, b % q->A, N, cam, &nent,
-                     flags.data(), hist.data(), ents.data(), o, 0, 1);
-    else
-      grid_env<false>(*p, *q, s, b, 0, N, cam, &nent, flags.data(),
-                      hist.data(), ents.data(), o, 0, 1);
+    uint8_t* o = out + (long long)b * q->C * G * G * e;
+    const bool vec = (G * e) % 16 == 0 && (uintptr_t(o) & 15) == 0;
+    const int n = b / q->A, a = b % q->A;
+    auto* env = q->A > 1 ? (e == 4 ? grid_env<true, 4> : e == 2
+                            ? grid_env<true, 2> : grid_env<true, 1>)
+                         : (e == 4 ? grid_env<false, 4> : e == 2
+                            ? grid_env<false, 2> : grid_env<false, 1>);
+    env(*p, *q, s, n, a, N, smem.data(), o, vec, 0, 1);
   }
 }
 extern "C" void host_screen(const EnvParams* p, const ScreenParams* q,
                             void* const* planes, uint8_t* out, int N) {
   const Planes s = planes_from(planes);
   const int S = q->S;
-  std::vector<float> tab(6 * S);
-  std::vector<uint8_t> flags(2 * S), cls(S * S);
-  float cam[4];
+  std::vector<uint8_t> smem(screen_scratch(S));
   for (int b = 0; b < N * q->A; b++) {
     uint8_t* o = out + (long long)b * S * S * q->C;
+    const bool vec = S % 4 == 0 && (uintptr_t(o) & 15) == 0;
     const int n = b / q->A, a = b % q->A;
     auto* env = q->poly ? (q->A > 1 ? screen_env<true, true>
                                     : screen_env<true, false>)
                         : (q->A > 1 ? screen_env<false, true>
                                     : screen_env<false, false>);
-    env(*p, *q, s, n, a, N, cam, tab.data(), flags.data(), cls.data(), o, 0,
-        1);
+    env(*p, *q, s, n, a, N, smem.data(), o, vec, 0, 1);
   }
 }
+extern "C" long long host_screen_scratch(int S) { return screen_scratch(S); }
+extern "C" long long host_grid_scratch(int G) { return grid_scratch(G); }
 """
 CFG = EnvConfig(num_agents=1, ticks_per_step=4, arena_size=200,
                 num_pellets=150, num_viruses=6, reward_type=True, mode=4)
@@ -112,6 +109,10 @@ def host_lib(tmp_path_factory):
                                     i32]
     lib.host_grid.argtypes = [vp, vp, vp, vp, i32]
     lib.host_screen.argtypes = [vp, vp, vp, vp, i32]
+    lib.host_screen_scratch.argtypes = [i32]
+    lib.host_screen_scratch.restype = ctypes.c_longlong
+    lib.host_grid_scratch.argtypes = [i32]
+    lib.host_grid_scratch.restype = ctypes.c_longlong
     return lib
 
 
@@ -318,7 +319,11 @@ def _two_agents():
 @pytest.mark.parametrize("grid", [
     GridObsConfig(grid_size=64, out_dtype="int16"),
     GridObsConfig(grid_size=32, out_dtype="int8"),
-    GridObsConfig(grid_size=24, out_dtype="int32", observe_cells=False)])
+    GridObsConfig(grid_size=24, out_dtype="int32", observe_cells=False),
+    GridObsConfig(grid_size=33, out_dtype="int8"),          # ragged runs
+    GridObsConfig(grid_size=36, out_dtype="int16", observe_pellets=False,
+                  observe_others=False),                   # narrow stores
+    GridObsConfig(grid_size=128, out_dtype="int32")])
 def test_grid_source_matches_plain(host_lib, grid):
     frames = []
     for cfg, s in _grid_states():
@@ -342,7 +347,10 @@ def test_grid_source_matches_plain(host_lib, grid):
     ScreenObsConfig(41, agent_view=False, polygon_edges=True,
                     polygon_virus="circle"),
     ScreenObsConfig(128, agent_view=True, polygon_edges=True,
-                    polygon_virus="circle")])
+                    polygon_virus="circle"),
+    ScreenObsConfig(84, agent_view=False),      # packed RGB, 48-byte runs
+    ScreenObsConfig(100, agent_view=True),      # S not a multiple of 32
+    ScreenObsConfig(30, agent_view=True)])      # S not a multiple of 4
 def test_screen_source_matches_plain(host_lib, scr):
     """K3 (circle mode, poly mode) on played, heavy, two-player and
     two-agent states against its plain version: every pixel equal."""
@@ -357,3 +365,84 @@ def test_screen_source_matches_plain(host_lib, scr):
         assert int((got != want).any(-1).sum()) == 0
     assert tuple(want.shape[:2]) == (N, 2)
     assert not torch.equal(want[:, 0], want[:, 1])
+
+
+def _crafted(S):
+    """Crafted two-player (mode 7) states for K3's mechanisms, 4 envs each
+    (the camera is player 0's centroid, 82.8 units wide at mass 25):
+    every class on the screen's centre pixel (a grid line through it, a
+    pellet, a food, player 0's cell, player 1's cell and a virus there);
+    player 1's cell of mass 20000 covering the whole screen; and foods and
+    pellets astride the 32-pixel word boundaries and the screen's edges."""
+    W = DUEL.arena_width
+    z = zero_state(DUEL, 4)
+    x0 = float(np.float32(3.0 / 7.0) * np.float32(W))       # a grid line
+    half = 100.0 * FS._TAN_HALF_FOV
+    pitch = 2.0 * half / S
+    d = {f: getattr(z, f).clone() for f in (
+        "cell_pos", "cell_mass", "cell_alive", "food_pos", "food_alive",
+        "virus_pos", "virus_mass", "virus_alive", "pellet_key")}
+    d["cell_pos"][:, 0, 0] = torch.tensor([x0, x0])
+    d["cell_mass"][:, 0, 0] = 25
+    d["cell_alive"][:, 0, 0] = True
+    d["cell_pos"][:, 1, 0] = torch.tensor([x0 + 0.3, x0 - 0.2])
+    d["cell_mass"][:, 1, 0] = torch.tensor([30, 20000, 30, 30])
+    d["cell_alive"][:, 1, 0] = True
+    d["virus_pos"][:, 0] = torch.tensor([x0 - 0.4, x0 + 0.1])
+    d["virus_mass"][:, 0] = 100
+    d["virus_alive"][:, 0] = True
+    left = x0 - half
+    spots = [(0, 0.0), (1, 0.0)]                  # the centre
+    for k in range(1, (S + 31) // 32):            # astride word boundaries
+        spots.append((2 + k, 32.0 * k * pitch - half))
+    spots += [(20, -half - 0.4), (21, half + 0.3),  # astride the edges
+              (22, -half + 0.2)]
+    for slot, off in spots:
+        d["food_pos"][:, slot] = torch.tensor([left + half + off,
+                                               x0 - 0.5 * off])
+        d["food_alive"][:, slot] = True
+    pos = torch.tensor([[x0 + off, x0 + 0.3 * off] for _, off in spots])
+    from agarcl_tpu_torch.state import encode_pellet_key
+    keys = encode_pellet_key(DUEL, pos, torch.ones(len(spots), dtype=bool))
+    d["pellet_key"][:, :len(spots)] = keys
+    d["food_pos"][2:, :, 1] += torch.tensor([[3.0], [-2.0]])  # vary envs
+    return z.replace(**d)
+
+
+@pytest.mark.parametrize("poly", [False, True])
+def test_screen_source_matches_plain_on_crafted_states(host_lib, poly):
+    """K3's bit planes, row intervals and the maximum rule on crafted
+    states (`_crafted`) against its plain version at S=128 (circles and
+    fans): every pixel equal, the centre pixel drawn as a virus, the
+    whole-screen cell as "other"."""
+    scr = ScreenObsConfig(128, agent_view=True, polygon_edges=poly,
+                          polygon_virus="circle")
+    s = _crafted(128)
+    planes = FT.to_kernel_arrays(s)
+    want = FS.frame_plain(DUEL, scr, planes)
+    got = torch.full_like(want, 77)
+    host_lib.host_screen(ctypes.byref(KP.env_params(DUEL, None)),
+                         ctypes.byref(FS.screen_params(DUEL, scr)),
+                         FT._ptr_array(planes), got.data_ptr(), 4)
+    assert int((got != want).any(-1).sum()) == 0
+    pal = torch.tensor(FS._packed_palette(True), dtype=torch.int32)
+    px = want[:, 0].contiguous().view(torch.int32)[..., 0]
+    assert int(px[0, 64, 64]) == int(pal[6])             # the virus on top
+    assert bool((px[1] == pal[5]).float().mean() > 0.9)  # other covers all
+
+
+def test_screen_source_matches_plain_above_the_old_limit(host_lib):
+    """K3 at S=512, above the 448 pixels the byte class map allowed (the
+    bit planes and the entity list fit a block up to MAX_SCREEN = 544):
+    the played state's frames equal the plain version's."""
+    scr = ScreenObsConfig(512, agent_view=False)
+    cfg, s = _grid_states()[0]
+    planes = FT.to_kernel_arrays(s)
+    want = FS.frame_plain(cfg, scr, planes)
+    got = torch.full_like(want, 77)
+    host_lib.host_screen(ctypes.byref(KP.env_params(cfg, None)),
+                         ctypes.byref(FS.screen_params(cfg, scr)),
+                         FT._ptr_array(planes), got.data_ptr(), N)
+    assert int((got != want).any(-1).sum()) == 0
+    assert host_lib.host_screen_scratch(FS.MAX_SCREEN) <= 232448
+    assert host_lib.host_grid_scratch(FG.MAX_GRID) <= 232448

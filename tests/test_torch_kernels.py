@@ -285,6 +285,52 @@ def test_grid_step_compositions_on_cpu_planes_match_plain(no_build):
     _step_compositions_match_plain(torch.device("cpu"), 4, "grid")
 
 
+@pytest.mark.parametrize("kind", ["screen", "grid", "tick"])
+def test_launch_params_are_cached_per_config(no_build, kind):
+    """The launch paths build their parameter blocks once per
+    configuration: a cached block equals a freshly built one byte for byte,
+    equal configs share one block, and a changed config (arena, screen or
+    grid size, dtype, agents, RAM frame) gets a block of its own."""
+    from agarcl_tpu_torch.ops import params as KP
+    two = EnvConfig(num_agents=2, ticks_per_step=4, arena_size=300,
+                    num_pellets=150, num_viruses=6, num_bots=1, mode=0)
+    if kind == "screen":
+        a, b = ScreenObsConfig(64), ScreenObsConfig(96, agent_view=False)
+        mod, fresh = FS, FS.screen_params
+    elif kind == "grid":
+        a, b = GridObsConfig(grid_size=32), GridObsConfig(grid_size=32,
+                                                          out_dtype="int8")
+        mod, fresh = FG, FG.grid_params
+    else:
+        a, b = None, RamObsConfig(num_pellets=8)
+    for cfg in (CFG, two):
+        for oc in (a, b):
+            if kind == "tick":
+                got = (KP.launch_env_params(cfg, oc),)
+                want = (KP.env_params(cfg, oc),)
+                again = (KP.launch_env_params(cfg, oc),)
+            else:
+                got = mod.launch_params(cfg, oc)
+                want = (KP.env_params(cfg, None), fresh(cfg, oc))
+                again = mod.launch_params(cfg, oc)
+            assert [bytes(x) for x in got] == [bytes(x) for x in want]
+            assert all(x is y for x, y in zip(got, again))
+    if kind == "tick":
+        blocks = {id(KP.launch_env_params(c, o)) for c in (CFG, two)
+                  for o in (a, b)}
+        assert len(blocks) == 4
+        assert bytes(KP.launch_env_params(CFG, a)) != bytes(
+            KP.launch_env_params(two, a))
+    else:
+        q = {id(mod.launch_params(c, o)[1]) for c in (CFG, two)
+             for o in (a, b)}
+        assert len(q) == 4
+        assert bytes(mod.launch_params(CFG, a)[1]) != bytes(
+            mod.launch_params(CFG, b)[1])
+        assert bytes(mod.launch_params(CFG, a)[1]) != bytes(
+            mod.launch_params(two, a)[1])
+
+
 def test_failed_build_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "_lib", None)
     monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
