@@ -18,9 +18,10 @@ Phase order follows Engine::tick + tick_player (Engine.hpp:208-240,
   14 pellet/virus regeneration
   15 ticks++
 
-Rosters of up to MAX_ROSTER players (agents plus scripted bots) tick,
-the cap of the JAX package's fused path (agarcl_tpu/ops/fused_tick.py::
-supports); larger ones raise NotImplementedError.
+Any roster ticks (agents plus scripted bots), as the JAX package's XLA
+tick does; only the tick kernel K1 caps the roster
+(ops/fused_tick.py::supports, as agarcl_tpu/ops/fused_tick.py::supports
+caps the fused path).
 """
 
 from __future__ import annotations
@@ -38,20 +39,7 @@ from agarcl_tpu_torch.engine import spawn as S
 from agarcl_tpu_torch.state import GameState, cell_rank_of
 
 
-MAX_ROSTER = 9     # players; the JAX package's fused-path cap
-
-
-def check_supported(cfg: EnvConfig) -> None:
-    """Raise for rosters above MAX_ROSTER players (agents plus bots)."""
-    if cfg.num_players > MAX_ROSTER:
-        raise NotImplementedError(
-            f"the port ticks rosters of up to {MAX_ROSTER} players "
-            f"(agents plus bots); this configuration has "
-            f"{cfg.num_players}")
-
-
 def engine_tick(cfg: EnvConfig, state: GameState) -> GameState:
-    check_supported(cfg)
     W, H = cfg.arena_width, cfg.arena_height
     dt = float(np.float32(cfg.dt))
     dev = state.device

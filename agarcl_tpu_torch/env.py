@@ -52,12 +52,16 @@ def env_reset(cfg: EnvConfig, seeds: torch.Tensor) -> GameState:
         next_cell_id=torch.full((N,), P + 1, dtype=torch.int32, device=dev))
 
 
-def reset_seeds(num_envs: int, seed: int, device=None) -> torch.Tensor:
+def reset_seeds(num_envs: int, seed: int, device=None,
+                offset: int = 0) -> torch.Tensor:
     """The per-env seeds of VecEnv.reset(seed) (agarcl_tpu/vec.py:207-208):
-    arange(N) + (seed * 0x9E3779B9 mod 2^32), wrapping in uint32."""
+    arange(N) + (seed * 0x9E3779B9 mod 2^32), wrapping in uint32. `offset`
+    is the global index of the first env: a shard of ShardedVecEnv gets
+    its slice offset:offset+N of the global seeds
+    (agarcl_tpu/parallel/mesh.py:102-106)."""
     base = (seed * 0x9E3779B9) & 0xFFFFFFFF
-    return (torch.arange(num_envs, dtype=torch.int64, device=device)
-            + base) & 0xFFFFFFFF
+    return (torch.arange(offset, offset + num_envs, dtype=torch.int64,
+                         device=device) + base) & 0xFFFFFFFF
 
 
 def apply_actions(cfg: EnvConfig, state: GameState, actions) -> GameState:

@@ -47,6 +47,14 @@ _ELEM = {torch.int32: 4, torch.int16: 2, torch.int8: 1}
 _CHUNK = 1024         # envs per pass of the plain rasterizer (memory)
 
 
+def supports(ocfg: GridObsConfig) -> bool:
+    """Whether K4 draws the grid configuration: G up to MAX_GRID. Larger
+    grids go through frame_plain on the planes' device, as the JAX
+    package sends a G its kernel does not take to the XLA grid_frame
+    (agarcl_tpu/ops/fused_grid.py:58-64)."""
+    return 1 <= ocfg.grid_size <= MAX_GRID
+
+
 def section_meta(cfg: EnvConfig):
     """(name, width, padded width, pad fill) of the 13 input sections."""
     P, Cc = cfg.num_players, cfg.max_cells

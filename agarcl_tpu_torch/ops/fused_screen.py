@@ -44,9 +44,9 @@ one agent, XLA's fma chain with more.
 
 `fused_screen_frame` launches K3 for CUDA planes and runs the plain version
 only for CPU planes; `launches` and `plain_calls` count which ran.
-`class_map_frame` is the GameState route of polygon configurations that
-K3 does not take (the wavy virus rim, S > 128): obs/screen.py::screen_frame
-on the planes' device.
+`class_map_frame` is the GameState route of the configurations that K3
+does not take (`supports`: the wavy virus rim, polygons above S = 128,
+circles above S = 544): obs/screen.py::screen_frame on the planes' device.
 """
 
 from __future__ import annotations
@@ -92,6 +92,18 @@ def supports_polygon(ocfg: ScreenObsConfig) -> bool:
     JAX kernel keeps pixel rows in lanes, so S <= 128."""
     return (ocfg.polygon_edges and ocfg.polygon_virus == "circle"
             and ocfg.screen_len <= MAX_POLY_SCREEN)
+
+
+def supports(ocfg: ScreenObsConfig) -> bool:
+    """Whether K3 draws the screen configuration: circle mode up to
+    MAX_SCREEN, polygon mode as `supports_polygon`. The route of the
+    others is class_map_frame (obs/screen.py::screen_frame), as the JAX
+    package draws any S through its XLA class map
+    (agarcl_tpu/ops/fused_screen.py:59-63)."""
+    check_config(ocfg)
+    if ocfg.polygon_edges:
+        return supports_polygon(ocfg)
+    return 2 <= ocfg.screen_len <= MAX_SCREEN
 
 
 def _poly_edges(n_sides: int):
@@ -362,8 +374,8 @@ def class_map_frame(cfg: EnvConfig, ocfg: ScreenObsConfig, planes,
                     out: torch.Tensor | None = None) -> torch.Tensor:
     """(N, A, S, S, 3|4) uint8 frames of the planes through the GameState
     route (obs/screen.py::screen_frame, counted in its class_map_calls) on
-    the planes' device: the route of polygon configurations that K3 does
-    not take."""
+    the planes' device: the route of the configurations that K3 does not
+    take (`supports`)."""
     N = check_planes(cfg, planes)
     state = from_kernel_arrays(zero_state(cfg, N, planes[0].device), planes)
     frame = screen_frame(cfg, ocfg, state)

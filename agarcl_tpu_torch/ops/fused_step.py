@@ -79,24 +79,33 @@ def from_resident(cfg: EnvConfig, resident: ResidentState) -> GameState:
         dones=resident.dones.clone())
 
 
-def frame_kernel(ocfg):
+def frame_kernel(ocfg, plain: bool = False):
     """(wrapper, per-frame shape, dtype) of a frame observation on
-    kernel-layout planes, routed as the JAX package routes it: the grid
-    kernel K4 for a GridObsConfig; for a ScreenObsConfig the screen kernel
-    K3 (circle mode, or `poly` mode for polygon configurations it takes,
-    fused_screen.supports_polygon), else the GameState route
-    (fused_screen.class_map_frame: the wavy virus rim, S > 128); None for
-    RAM and no observation. Each wrapper returns (N, A, ...)."""
+    kernel-layout planes, routed by the observation config as the JAX
+    package routes it: for a GridObsConfig the grid kernel K4 where it
+    takes the size (fused_grid.supports: G <= 238), else
+    fused_grid.frame_plain on the planes' device (the JAX package's XLA
+    grid_frame for a G its kernel does not take); for a ScreenObsConfig
+    the screen kernel K3 (circle mode, or `poly` mode for the polygon
+    configurations it takes) where fused_screen.supports, else the
+    GameState route fused_screen.class_map_frame (the wavy virus rim,
+    polygons above S = 128, circles above S = 544); None for RAM and no
+    observation. plain=True gives K3's and K4's plain versions in place of
+    the kernel wrappers. The counters tell the routes apart (fused_screen
+    and fused_grid `launches` / `plain_calls`, obs/screen.py::
+    class_map_calls). Each wrapper returns (N, A, ...)."""
     if isinstance(ocfg, GridObsConfig):
         G = ocfg.grid_size
-        return (FG.fused_grid_frame, (ocfg.channels_per_frame, G, G),
-                ocfg.torch_dtype)
+        frame = (FG.fused_grid_frame if FG.supports(ocfg) and not plain
+                 else FG.frame_plain)
+        return frame, (ocfg.channels_per_frame, G, G), ocfg.torch_dtype
     if isinstance(ocfg, ScreenObsConfig):
         S = ocfg.screen_len
         shape = (S, S, 4 if ocfg.agent_view else 3)
-        if ocfg.polygon_edges and not FS.supports_polygon(ocfg):
+        if not FS.supports(ocfg):
             return FS.class_map_frame, shape, torch.uint8
-        return FS.fused_screen_frame, shape, torch.uint8
+        frame = FS.frame_plain if plain else FS.fused_screen_frame
+        return frame, shape, torch.uint8
     return None
 
 
@@ -115,12 +124,14 @@ def _framed_step(cfg, raw, actions, ocfg, F, frame, tick, out):
     return raw, inf
 
 
-def _frame_steps(cfg, raw, actions, k, ocfg, tick, stack_obs):
-    """k framed steps (`_framed_step`) of F = ocfg.num_frames frames each.
+def _frame_steps(cfg, raw, actions, k, ocfg, plain, stack_obs):
+    """k framed steps (`_framed_step`) of F = ocfg.num_frames frames each,
+    through the kernel wrappers or, with plain=True, their plain versions.
     Returns (planes, obs (k, N, F, A, ...) or a k-tuple of (N, F, A, ...),
     info (k, N, 2, P)). Each frame is written into its slice of a
     (k, F, N, A, ...) buffer, returned as a (k, N, F, A, ...) view."""
-    frame, shape, dtype = frame_kernel(ocfg)
+    frame, shape, dtype = frame_kernel(ocfg, plain)
+    tick = FT.engine_tick_raw_plain if plain else FT.engine_tick_raw
     F = ocfg.num_frames
     N = raw[0].shape[-1]
     dev = raw[0].device
@@ -157,9 +168,8 @@ def multi_step_resident(cfg: EnvConfig, resident: ResidentState, actions,
     A = cfg.num_agents
     ms = cfg.mode_spec
     if frame_kernel(ocfg) is not None:
-        tick = FT.engine_tick_raw_plain if plain else FT.engine_tick_raw
         raw, obs, info = _frame_steps(cfg, resident.raw, actions, k, ocfg,
-                                      tick, stack_obs)
+                                      plain, stack_obs)
     else:
         step = FT.multi_step_raw_plain if plain else FT.multi_step_raw
         raw, obs, info = step(cfg, resident.raw, actions, k, ocfg)
@@ -189,8 +199,9 @@ def fused_env_step(cfg: EnvConfig, states: GameState, actions, ocfg,
     also writes the RAM frames of a RamObsConfig), or for a frame
     observation `_framed_step`'s chain of engine_tick_raw calls and frames
     (`frame_kernel`: a ScreenObsConfig: fused_screen_frame, K3 on CUDA, or
-    class_map_frame for polygon screens K3 does not take; a GridObsConfig:
-    fused_grid_frame, K4 on CUDA); then `_finish_step`. A
+    class_map_frame for screens K3 does not take; a GridObsConfig:
+    fused_grid_frame, K4 on CUDA, or frame_plain for grids K4 does not
+    take); then `_finish_step`. A
     GoBiggerObsConfig takes the plain gobigger_frame of the post-step state
     (the JAX package has no kernel for it). Returns (states,
     obs (N, F, A, ...), a GoBigger dict of (N, 1, A, ...) or None,

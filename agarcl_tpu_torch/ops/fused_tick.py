@@ -37,8 +37,9 @@ import functools
 
 import torch
 
+from agarcl_tpu_torch import constants as C
 from agarcl_tpu_torch.config import EnvConfig
-from agarcl_tpu_torch.engine.tick import MAX_ROSTER, engine_tick
+from agarcl_tpu_torch.engine.tick import engine_tick
 from agarcl_tpu_torch.env import apply_actions
 from agarcl_tpu_torch.obs.ram import RamObsConfig, ram_frame, ram_size
 from agarcl_tpu_torch.ops import _build
@@ -74,6 +75,8 @@ for _name, _kind in SPLIT_PLAN:
     _i = sum(len(v) for v in PLANE_INDEX.values())
     PLANE_INDEX[_name] = ((_i, _i + 1) if _kind in ("v2", "v2p", "v2c")
                           else (_i,))
+
+MAX_ROSTER = 9        # players K1 takes: the JAX package's fused-path cap
 
 launches = 0          # K1 launches (multi_step_raw and engine_tick_raw)
 tick_launches = 0     # K1 launches made through engine_tick_raw
@@ -137,14 +140,34 @@ def from_kernel_arrays(template: GameState, planes) -> GameState:
     return template.replace(**kw)
 
 
+def refusal(cfg: EnvConfig) -> str | None:
+    """Why K1 does not take a configuration, naming the limit, or None
+    when it does. K1 takes rosters of up to MAX_ROSTER players (agents plus
+    bots; the JAX package's fused-path cap), and its compile-time
+    capacities: max_cells and virus_ticks_capacity of 16 and at most 64
+    virus slots (num_viruses + VIRUS_HEADROOM). The plain engine
+    (backend="torch") takes every configuration on the same device."""
+    if cfg.num_players > MAX_ROSTER:
+        return (f"the tick kernel takes rosters of up to {MAX_ROSTER} "
+                f"players (agents plus bots); this configuration has "
+                f"{cfg.num_players}")
+    if cfg.max_cells != KP.MAX_CELLS:
+        return (f"the tick kernel takes max_cells == {KP.MAX_CELLS}; this "
+                f"configuration has {cfg.max_cells}")
+    if cfg.virus_ticks_capacity != KP.MAX_TICKS_RING:
+        return (f"the tick kernel takes virus_ticks_capacity == "
+                f"{KP.MAX_TICKS_RING}; this configuration has "
+                f"{cfg.virus_ticks_capacity}")
+    if cfg.virus_capacity > KP.MAX_VIRUSES:
+        return (f"the tick kernel takes at most {KP.MAX_VIRUSES} virus "
+                f"slots (num_viruses + {C.VIRUS_HEADROOM}); this "
+                f"configuration has {cfg.virus_capacity}")
+    return None
+
+
 def supports(cfg: EnvConfig) -> bool:
-    """Configurations K1 covers: rosters of up to 9 players (agents plus
-    bots; the JAX package's fused-path cap) at the pinned cell and
-    virus-tick capacities."""
-    return (cfg.num_players <= MAX_ROSTER
-            and cfg.max_cells == KP.MAX_CELLS
-            and cfg.virus_ticks_capacity == KP.MAX_TICKS_RING
-            and cfg.virus_capacity <= KP.MAX_VIRUSES)
+    """Whether K1 takes the configuration (`refusal` is None)."""
+    return refusal(cfg) is None
 
 
 def _actions_planes(cfg: EnvConfig, actions: torch.Tensor, N: int):
@@ -259,10 +282,9 @@ def _ptr_array(tensors):
 
 def _check_call(cfg: EnvConfig, planes, actions):
     """Validate a K1 call (roster, device, planes, actions); returns N."""
-    if not supports(cfg):
-        raise NotImplementedError(
-            f"the multi-step kernel covers rosters of up to {MAX_ROSTER} "
-            f"players at the pinned capacities ({cfg.num_players} players)")
+    why = refusal(cfg)
+    if why is not None:
+        raise NotImplementedError(why)
     dev = planes[0].device
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {dev}")

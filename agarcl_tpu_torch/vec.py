@@ -10,10 +10,15 @@ run raises.
   of rosters up to 9 players with bots (ops/fused_tick.py), K2, the RAM
   frame (ops/fused_obs.py), K3, the screen frame in circle and polygon
   mode (ops/fused_screen.py), and K4, the grid frame (ops/fused_grid.py),
-  K3 and K4 drawing one frame per (env, agent). Polygon screens that K3
-  does not take (polygon_virus="wavy", or screen_len > 128) go through
-  obs/screen.py::screen_frame on the card, as the JAX package sends them
-  through its XLA class map. RAM and no observations run as one K1 call per
+  K3 and K4 drawing one frame per (env, agent). A configuration K1 does
+  not take (fused_tick.refusal: above 9 players, other tick capacities)
+  raises NotImplementedError, as the JAX package's fused backend asserts.
+  Screens that K3 does not take (polygon_virus="wavy", polygons above
+  S = 128, circles above S = 544) go through obs/screen.py::screen_frame
+  on the card, as the JAX package sends them through its XLA class map;
+  grids above G = 238 through the plain grid frame on the card
+  (ops/fused_step.py::frame_kernel picks the route from the observation
+  config). RAM and no observations run as one K1 call per
   multi_step on resident (feature, N) planes. Screen and grid observations
   run on planes converted once per call, each step with num_frames F as K1
   with a tick count (engine_tick_raw) with the actions and
@@ -27,8 +32,9 @@ run raises.
   Nothing falls back to the CPU or to the plain version.
 - backend="torch" runs the plain engine (engine_tick) and the plain frames
   (obs/ram.py::ram_frame; ops/fused_screen.py::frame_plain, or
-  obs/screen.py::screen_frame for the polygon screens K3 does not take;
-  ops/fused_grid.py::frame_plain) on any device.
+  obs/screen.py::screen_frame for the screens K3 does not take;
+  ops/fused_grid.py::frame_plain) on any device, for any roster, as the
+  JAX package's XLA backend does.
 
 Shapes follow the JAX package: reset obs (N, A, R), (N, A, S, S, C),
 (N, A, C, G, G) or a GoBigger dict of (N, A, K, F) tables and (N, A, K)
@@ -45,7 +51,6 @@ from __future__ import annotations
 import torch
 
 from agarcl_tpu_torch.config import EnvConfig
-from agarcl_tpu_torch.engine.tick import check_supported
 from agarcl_tpu_torch.env import (env_reset, env_step, reset_done,
                                   reset_seeds, stack_frames)
 from agarcl_tpu_torch.obs.gobigger import GoBiggerObsConfig, gobigger_frame
@@ -54,7 +59,6 @@ from agarcl_tpu_torch.obs.ram import RamObsConfig, ram_frame
 from agarcl_tpu_torch.obs.screen import (ScreenObsConfig, check_config,
                                          screen_frame)
 from agarcl_tpu_torch.ops import fused_obs, fused_step
-from agarcl_tpu_torch.ops import fused_grid as FG
 from agarcl_tpu_torch.ops import fused_screen as FS
 from agarcl_tpu_torch.ops import fused_tick as FT
 from agarcl_tpu_torch.state import GameState
@@ -69,7 +73,11 @@ class VecEnv:
             raise ValueError(f"unknown obs_type {obs_type!r}")
         if backend not in ("torch", "cuda"):
             raise ValueError(f"unknown backend {backend!r}")
-        check_supported(cfg)
+        why = FT.refusal(cfg) if backend == "cuda" else None
+        if why is not None:
+            raise NotImplementedError(
+                f"{why}; backend='torch' runs this configuration with the "
+                "plain engine on the same device")
         device = torch.device(device or "cuda")
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("VecEnv runs on a CUDA device and none is "
@@ -90,16 +98,8 @@ class VecEnv:
         self._per_step = (auto_reset or respawn_main_during_obs
                           or cfg.mode_spec.respawn_all
                           or obs_type == "gobigger")
-        if backend == "cuda":
-            if device.type != "cuda":
-                raise ValueError("backend='cuda' runs on a CUDA device")
-            frames = obs_type in ("screen", "grid")
-            fits = (FT.supports(cfg) if frames or self._per_step
-                    else fused_step.supports_multi(cfg, obs_type))
-            if not fits:
-                raise NotImplementedError(
-                    "the cuda backend runs the tick kernel, which this "
-                    "configuration does not fit")
+        if backend == "cuda" and device.type != "cuda":
+            raise ValueError("backend='cuda' runs on a CUDA device")
         self.cfg = cfg
         self.num_envs = num_envs
         self.obs_type = obs_type
@@ -119,20 +119,18 @@ class VecEnv:
         if self.obs_type == "gobigger":
             return gobigger_frame(self.cfg, self.ocfg, states)
         if self.obs_type in ("screen", "grid"):
-            route = fused_step.frame_kernel(self.ocfg)[0]
+            route = fused_step.frame_kernel(self.ocfg, plain=not cuda)[0]
             if route is FS.class_map_frame:
                 return screen_frame(self.cfg, self.ocfg, states)
-            if not cuda:
-                route = (FS.frame_plain if self.obs_type == "screen"
-                         else FG.frame_plain)
             return route(self.cfg, self.ocfg, FT.to_kernel_arrays(states))
         return None
 
-    def reset(self, seed: int = 0):
+    def reset(self, seed: int = 0, env_offset: int = 0):
         """(states, obs (N, A, ...) | None); per-env seeds as
-        agarcl_tpu/vec.py:207-208."""
+        agarcl_tpu/vec.py:207-208, starting at global env `env_offset`
+        (a shard's first env, parallel/mesh.py)."""
         states = env_reset(self.cfg, reset_seeds(self.num_envs, seed,
-                                                 self.device))
+                                                 self.device, env_offset))
         return states, self.observe(states)
 
     def _actions(self, actions) -> torch.Tensor:

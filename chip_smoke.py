@@ -11,7 +11,9 @@ reset, multi_step(k=10)) and the grid path (bench.py --obs grid: a 64 x 64
 int16 grid of 8 channels every step; reset, multi_step(k=10)); then the
 task suite's duel (mode 10: one agent against an AggressiveShy bot) on the
 screen path, its RAM path and mode 0 with bots; then polygon screens and
-two agents' frames. Phases, one line each:
+two agents' frames; then the rim: a 12-player roster on the plain engine,
+the frame routes by size, ShardedVecEnv, the port's bench, the bot
+evaluator, the client and profiling. Phases, one line each:
 
   1. toolchain: GPU name and power limit, torch and CUDA versions, nvcc,
      kernel build time, ptxas registers, stack and spills per kernel;
@@ -120,10 +122,43 @@ two agents' frames. Phases, one line each:
  23. times: num_frames-4 screen and grid env-steps/s, K1 per one-tick
      partial-step call (CUDA events, and the kernel's own device time from
      torch.profiler) against its bound, gym steps per second at 1 env per
-     obs type with the share of a step that is host time.
+     obs type with the share of a step that is host time;
+ 24. a roster above 9 players (mode 0 with 11 bots) on backend="torch" on
+     the card at 1024 envs, RAM and the 64 x 64 int16 grid, 8 steps, no
+     kernel launched, against the same plain engine on the CPU at 64 envs
+     (integer state equal in all but 0.5% of envs, rounded up; f32 within
+     2e-3; grid frames equal); backend="cuda" raises NotImplementedError
+     naming the 9-player limit and backend="torch";
+ 25. the frame routes by size at 256 envs, reset + multi_step(k=2): circle
+     S=640 through obs/screen.py::screen_frame (class_map_calls 3, K3 0)
+     and a G=256 int32 grid through fused_grid.frame_plain (plain_calls 3,
+     K4 0), each frame equal to the CPU's route on the first 16 envs of the
+     same state; S=544 and G=238 still launch K3 / K4 (3 each), equal to
+     their plain versions;
+ 26. sharding: distributed.initialize with one NCCL rank (tcp://localhost),
+     ShardedVecEnv over the card's devices at 8192 envs, RAM, resident
+     k=40: K1 and K2 once a shard; reset frames, frames, rewards, dones and
+     state bit-equal to VecEnv; mean_reward (one all_reduce) the global
+     mean; both timed; with more than one card, 2 shards in one process;
+ 27. the port's bench, agarcl_tpu_torch.bench.main in process for --obs
+     ram, --obs screen --size 128, --obs grid and --mode 10 --obs screen
+     --size 128: bench.py's JSON line each (printed), kernels only; and
+     --mode 0 --bots 9 at 256 envs, which K1 refuses: the plain engine on
+     the card, its JSON line saying backend "torch", a note on stderr;
+ 28. the bot evaluator, 2048 games x 25 steps (9 players, K1 once a step):
+     its table and env-steps/s;
+ 29. the client at its defaults (9 players, S=512 natural RGB), 30 steps
+     steered by the mouse: K1 and K3 once a step; each frame of a step
+     without a cross-player eat equal to K3's plain version on the planes
+     of the state after the step;
+ 30. profiling: device_time_of on one K3 call against CUDA events,
+     StepTimer, and trace() (the screen kernel's device time).
 
-Then a JSON line describing each kernel, the GPU line and, last, the
-device JSON line. Every screen and grid step runs K1 through
+Then a JSON line of the rim's own figures ("rim": the 12-player plain
+step, sharded and unsharded call times, the bot evaluator's rate and the
+client's step, none of them a kernel's), a JSON line describing each
+kernel (its launches by path include phases 24-30's), the GPU line and,
+last, the device JSON line. Every screen and grid step runs K1 through
 engine_tick_raw, so the JSON line lists those launches under
 "engine_tick" and the RAM and GoBigger paths' under "multi_step_tick".
 Any failure raises and exits non-zero. Without a CUDA device the script
@@ -132,7 +167,10 @@ exits non-zero before printing any result; it never falls back to the CPU.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -1055,6 +1093,380 @@ def _gym_rate(core, dev, steps: int = 50):
     return wall, (busy if busy > 0 else None)
 
 
+# ----------------------------------------------------------- the rim (24-30)
+N_ROUTE = 256                            # envs of the large-frame routes
+N_ROUTE_CPU = 16                         # envs of their CPU comparison
+N_ROSTER12 = 1024                        # envs of the 12-player roster
+N_ROSTER12_CPU = 64                      # envs of its CPU comparison
+ROSTER12 = dict(num_agents=1, ticks_per_step=4, arena_size=350,
+                num_pellets=500, num_viruses=10, num_bots=11, mode=0)
+
+
+def _head(s, n: int, device="cpu"):
+    """The first n envs of a GameState, on `device`."""
+    from agarcl_tpu_torch.state import STATE_FIELDS
+    return s.replace(**{f: getattr(s, f)[:n].to(device)
+                        for f in STATE_FIELDS})
+
+
+def _counts() -> dict:
+    """The kernels' launch counts and the plain routes' call counts."""
+    from agarcl_tpu_torch.obs import screen as TS
+    FT, K2, FS, FG = _kernel_modules()
+    return {"k1": FT.launches, "k1_tick": FT.tick_launches,
+            "k2": K2.launches, "k3": FS.launches, "k4": FG.launches,
+            "plain": FT.plain_calls + K2.plain_calls + FS.plain_calls,
+            "class_map": TS.class_map_calls, "grid_plain": FG.plain_calls}
+
+
+def _phase24(dev, gpu) -> float:
+    """Rosters above 9 players on the torch backend on the card, against
+    the same plain engine on the CPU; the cuda backend's refusal. Returns
+    ms per step of the 12-player RAM path on the card."""
+    from agarcl_tpu_torch import EnvConfig
+    from agarcl_tpu_torch.obs.grid import GridObsConfig
+    from agarcl_tpu_torch.vec import VecEnv
+    cfg = EnvConfig(**ROSTER12)
+    n, nc, steps = N_ROSTER12, N_ROSTER12_CPU, 8
+    acts = _random_actions(n, dev)
+    try:
+        VecEnv(cfg, n, "ram")
+        raise RuntimeError("check failed: backend='cuda' took 12 players")
+    except NotImplementedError as e:
+        msg = str(e)
+    _check("9 players" in msg and "backend='torch'" in msg,
+           f"the cuda backend's refusal names the limit ({msg})")
+    out = {}
+    for kind, ocfg in (("ram", None), ("grid", GridObsConfig(grid_size=64))):
+        env = VecEnv(cfg, n, kind, backend="torch", device=dev,
+                     obs_config=ocfg)
+        _zero_counts()
+        s, _ = env.reset(0)
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        s, o, r, d = env.multi_step(s, acts, steps)
+        torch.cuda.synchronize(dev)
+        ms = 1e3 * (time.perf_counter() - t0) / steps
+        c = _counts()
+        _check(c["k1"] == c["k2"] == c["k3"] == c["k4"] == c["plain"] == 0,
+               f"12 players {kind}: no kernel launched ({c})")
+        _check(bool(torch.isfinite(r).all()) and s.cell_mass.shape[1] == 12,
+               f"12 players {kind}: finite rewards, 12 players")
+        cpu = VecEnv(cfg, nc, kind, backend="torch", device="cpu",
+                     obs_config=ocfg)
+        cs, _ = cpu.reset(0)
+        cs, co, cr, cd = cpu.multi_step(cs, acts[:nc].cpu(), steps)
+        head = _head(s, nc)
+        bad = _int_mismatch_envs(head, cs)
+        max_bad = math.ceil(MAX_DIVERGED_SHARE * nc)
+        n_bad = int(bad.sum())
+        _check(n_bad <= max_bad, f"12 players {kind}: at most {max_bad} of "
+               f"{nc} envs differ from the CPU in integer state ({n_bad})")
+        keep = ~bad
+        f32 = max((getattr(head, f)[keep] - getattr(cs, f)[keep]).abs()
+                  .max().item() for f in ("cell_pos", "cell_vel", "target",
+                                          "food_pos", "virus_pos"))
+        rew = (r[:, :nc].cpu()[:, keep] - cr[:, keep]).abs().max().item()
+        _check(f32 <= TOL_F32_STATE and rew <= TOL_REWARD,
+               f"12 players {kind}: f32 state within 2e-3 ({f32}), rewards "
+               f"within 1e-5 ({rew}) of the CPU")
+        if kind == "grid":
+            px = int((o[:, :nc].cpu()[:, keep] != co[:, keep]).sum())
+            _check(px == 0, f"12 players grid: frames equal the CPU's "
+                   f"({px} values differ)")
+        out[kind] = (ms, n_bad, f32)
+        del env, s, o, r, d
+    print(f"[24 rosters] mode 0 with 11 bots (12 players), backend='torch' "
+          f"on the card, {n} envs, reset(0) + multi_step(k={steps}): RAM "
+          f"{out['ram'][0]:.1f} ms per step, 64 int16 grid "
+          f"{out['grid'][0]:.1f} ms per step (host clock, synchronized); "
+          f"no kernel launched; against the plain engine on the CPU at "
+          f"{nc} envs: {out['ram'][1]} / {out['grid'][1]} envs differ in "
+          f"integer state, max f32 err {max(out['ram'][2], out['grid'][2]):.3g}"
+          f", grid frames equal; backend='cuda' raises NotImplementedError: "
+          f"{msg} | {gpu}", flush=True)
+    return out["ram"][0]
+
+
+def _phase25(cfg, dev, gpu) -> dict:
+    """The frame routes by size on the card: circle S=640 through the
+    class map, G=256 int32 through the plain grid frame, each equal to the
+    CPU's route on the same states; S=544 and G=238 still launch K3 / K4
+    and equal their plain versions. Returns {label: (ms per step, counts)}."""
+    from agarcl_tpu_torch.obs.grid import GridObsConfig
+    from agarcl_tpu_torch.obs.screen import ScreenObsConfig
+    from agarcl_tpu_torch.ops import fused_tick as FT
+    from agarcl_tpu_torch.vec import VecEnv
+    _, _, FS, FG = _kernel_modules()
+    n, nc, k = N_ROUTE, N_ROUTE_CPU, 2
+    acts = _random_actions(n, dev)
+    cases = (
+        ("screen S=640", "screen", ScreenObsConfig(640), "class_map"),
+        ("grid G=256 int32", "grid",
+         GridObsConfig(grid_size=256, out_dtype="int32"), "grid_plain"),
+        ("screen S=544", "screen", ScreenObsConfig(544), "k3"),
+        ("grid G=238 int32", "grid",
+         GridObsConfig(grid_size=238, out_dtype="int32"), "k4"))
+    out, text = {}, []
+    for label, kind, ocfg, route in cases:
+        env = VecEnv(cfg, n, kind, obs_config=ocfg)
+        _zero_counts()
+        s, o0 = env.reset(0)
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        s, o, r, d = env.multi_step(s, acts, k, stack_obs=False)
+        torch.cuda.synchronize(dev)
+        ms = 1e3 * (time.perf_counter() - t0) / k
+        c = _counts()
+        others = {"class_map", "grid_plain", "k3", "k4"} - {route}
+        _check(c[route] == k + 1 and all(c[x] == 0 for x in others)
+               and c["k1_tick"] == c["k1"] == k and c["plain"] == 0,
+               f"{label}: route {route} {k + 1}x, K1 {k}x, nothing else "
+               f"({c})")
+        last = o[-1][:, -1]
+        if route in ("class_map", "grid_plain"):
+            cpu = VecEnv(cfg, nc, kind, backend="torch", device="cpu",
+                         obs_config=ocfg)
+            want = cpu.observe(_head(s, nc))
+        else:
+            plain = FS.frame_plain if kind == "screen" else FG.frame_plain
+            want = plain(cfg, ocfg, FT.to_kernel_arrays(_head(s, nc, dev)))
+        diff = int((last[:nc].to(want.device) != want).sum())
+        ref = ("the CPU route" if route in ("class_map", "grid_plain")
+               else "the plain version on the card")
+        _check(diff == 0, f"{label}: {diff} values differ from {ref}")
+        out[label] = (ms, c)
+        text.append(f"{label}: {route} {c[route]}x, K1 {c['k1_tick']}x, "
+                    f"{ms:.2f} ms per step, 0 values differ from {ref} "
+                    f"({nc} envs)")
+        del env, s, o, o0, last, want
+    print(f"[25 frame routes] bench.py game, {n} envs, reset(0) + "
+          f"multi_step(k={k}): " + "; ".join(text) + f" | {gpu}", flush=True)
+    return out
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _call_ms(fn, dev) -> float:
+    """ms per call of fn (bench.py method: one warm call, median of 3 runs
+    x 4 calls, each run ended by a synchronisation)."""
+    fn()
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        for _ in range(4):
+            fn()
+        torch.cuda.synchronize(dev)
+        times.append(1e3 * (time.perf_counter() - t0) / 4)
+    return statistics.median(times)
+
+
+def _phase26(cfg, ocfg, dev, acts, gpu) -> dict:
+    """ShardedVecEnv over the card's devices in an NCCL group of one rank,
+    bit-equal to VecEnv; both timed. Returns the sharded path's counts and
+    times."""
+    import torch.distributed as dist
+    from agarcl_tpu_torch.ops import fused_step
+    from agarcl_tpu_torch.parallel import ShardedVecEnv, make_env_mesh
+    from agarcl_tpu_torch.parallel import distributed as D
+    from agarcl_tpu_torch.state import STATE_FIELDS
+    from agarcl_tpu_torch.vec import VecEnv
+    N, k = N_ENVS, K_STEPS
+    D.initialize(f"localhost:{_free_port()}", 1, 0)
+    _check(dist.is_initialized() and dist.get_backend() == "nccl",
+           "one NCCL rank")
+    n_dev = torch.cuda.device_count()
+    mesh = make_env_mesh()
+    _check(D.global_env_count(N // mesh.size, mesh) == N, "global env count")
+    sh = ShardedVecEnv(cfg, N, mesh, "ram", obs_config=ocfg)
+    ve = VecEnv(cfg, N, "ram", obs_config=ocfg)
+    _zero_counts()
+    ss, so0 = sh.reset(0)
+    rs = sh.make_resident(ss)
+    rs, so, sr, sd = sh.multi_step(rs, acts, k)
+    for d in mesh.devices:
+        torch.cuda.synchronize(d)
+    c = _counts()
+    _check(c["k1"] == len(mesh.devices) and c["k2"] == len(mesh.devices)
+           and c["plain"] == 0, f"sharded RAM path: K1 and K2 once a shard "
+           f"({c})")
+    vs, vo0 = ve.reset(0)
+    rv = ve.make_resident(vs)
+    rv, vo, vr, vd = ve.multi_step(rv, acts, k)
+    cat = (lambda xs, axis=0: torch.cat([x.to(dev) for x in xs], axis))
+    for label, a, b in (("reset frames", cat(so0), vo0),
+                        ("frames", cat(so, 1), vo), ("rewards", cat(sr, 1), vr),
+                        ("dones", cat(sd, 1), vd)):
+        _check(bool(torch.equal(a, b)), f"sharded {label} equal VecEnv's")
+    ms_, mv = sh.materialize(rs), ve.materialize(rv)
+    for f in STATE_FIELDS:
+        _check(bool(torch.equal(cat([getattr(s, f) for s in ms_]),
+                                getattr(mv, f))), f"sharded state {f} equal")
+    mean = sh.mean_reward(sr)
+    _check(mean == vr.to(torch.float64).mean().item(),
+           f"mean_reward over the group ({mean}) is the global mean")
+    t_sh = _call_ms(lambda: sh.multi_step(rs, acts, k), dev)
+    t_ve = _call_ms(lambda: ve.multi_step(rv, acts, k), dev)
+    two = "one card: no two-shard run"
+    if n_dev > 1:
+        sh2 = ShardedVecEnv(cfg, N, make_env_mesh(
+            [torch.device("cuda", i) for i in range(2)]), "ram",
+            obs_config=ocfg)
+        s2, _ = sh2.reset(0)
+        r2 = sh2.make_resident(s2)
+        r2, o2, rr2, _ = sh2.multi_step(r2, acts, k)
+        _check(bool(torch.equal(cat(rr2, 1), vr)),
+               "two shards in one process equal VecEnv")
+        t2 = _call_ms(lambda: sh2.multi_step(r2, acts, k), dev)
+        two = f"2 shards on 2 cards {t2:.2f} ms per call, equal"
+    dist.destroy_process_group()
+    print(f"[26 sharding] torch.cuda.device_count() = {n_dev}; one NCCL rank "
+          f"(tcp://localhost); ShardedVecEnv over {len(mesh.devices)} "
+          f"device(s), {N} envs, RAM, resident multi_step(k={k}): K1 "
+          f"{c['k1']}x, K2 {c['k2']}x; reset frames, frames, rewards, dones "
+          f"and state bit-equal to VecEnv; mean_reward {mean:.6f} (one "
+          f"all_reduce); {t_sh:.2f} ms per call sharded, {t_ve:.2f} unsharded "
+          f"(median of 3 x 4 calls); {two} | {gpu}", flush=True)
+    return {"counts": c, "ms": t_sh, "vecenv_ms": t_ve}
+
+
+BENCH_RUNS = (["--obs", "ram"], ["--obs", "screen", "--size", "128"],
+              ["--obs", "grid"], ["--mode", "10", "--obs", "screen",
+                                  "--size", "128"])
+
+
+def _phase27(gpu) -> dict:
+    """The port's bench entry in process, one JSON line each; returns
+    {flags: counts}."""
+    from agarcl_tpu_torch import bench
+    out = {}
+    for argv in BENCH_RUNS:
+        _zero_counts()
+        line = bench.main(list(argv))
+        c = _counts()
+        _check(line["backend"] == "cuda" and c["plain"] == 0
+               and c["class_map"] == 0 and c["k1"] > 0,
+               f"bench {' '.join(argv)}: kernels only ({c})")
+        _check(line["value"] > 0 and line["device"] == gpu,
+               f"bench {' '.join(argv)}: a rate and the card's line")
+        out[" ".join(argv)] = c
+    # a roster K1 refuses: the plain engine on the card, said on stderr
+    # and in the JSON line's backend, under bench.py's metric name
+    note = io.StringIO()
+    with contextlib.redirect_stderr(note):
+        line = bench.main(["--mode", "0", "--bots", "9", "--envs", "256",
+                           "--steps", "2", "--iters", "1"])
+    _check(line["backend"] == "torch" and line["metric"]
+           == "env_steps_per_sec_per_chip_256envs_ram_mode0_9bots"
+           and "10" in note.getvalue() and "backend='torch'"
+           in note.getvalue(), f"bench at 10 players: the plain engine, "
+           f"named ({line}, {note.getvalue()!r})")
+    print(f"[27 bench] python -m agarcl_tpu_torch.bench with "
+          + "; ".join(f"{a}: K1 {c['k1']}x, K2 {c['k2']}x, K3 {c['k3']}x, "
+                      f"K4 {c['k4']}x" for a, c in out.items())
+          + " (the JSON lines above); --mode 0 --bots 9 on the plain "
+          f"engine, noted: {note.getvalue().strip()}", flush=True)
+    return out
+
+
+def _phase28(gpu) -> dict:
+    """The bot evaluator at 2048 games x 25 steps on the card."""
+    from agarcl_tpu_torch import bot_evaluator
+    _zero_counts()
+    out = bot_evaluator.run(2048, 25, device="cuda")
+    c = _counts()
+    _check(out["backend"] == "cuda" and c["k1"] == 25 and c["plain"] == 0,
+           f"bot evaluator: K1 once a step, no plain version ({c})")
+    _check(bool((out["masses"] >= 0).all()) and out["masses"].shape
+           == (2048, 9), "bot evaluator: masses of 9 players")
+    print("[28 bot evaluator] " + bot_evaluator.report(out, 2048, 25)
+          .replace("\n", " | ") + f" | {gpu}", flush=True)
+    return {"counts": c, "rate": out["env_steps_per_sec"]}
+
+
+def _phase29(dev, gpu) -> dict:
+    """The client at its defaults (9 players, S=512 natural RGB), 30
+    headless steps; each frame held against K3's plain version on the
+    planes of the state after the step (in steps where no cell was eaten
+    across players, so mode 0's respawn changed nothing after the frame was
+    drawn)."""
+    from agarcl_tpu_torch.client import Client
+    from agarcl_tpu_torch.ops import fused_screen as FS
+    from agarcl_tpu_torch.ops import fused_tick as FT
+    client = Client()
+    _zero_counts()
+    frames, planes, t_steps = [], [], []
+    for t in range(30):
+        client.set_mouse(256 + 200 * math.cos(t / 5), 256 + 200 * math.sin(
+            t / 5))
+        eaten = int(client.state.cells_eaten.sum())
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        frame = client.step()
+        torch.cuda.synchronize(dev)
+        t_steps.append(1e3 * (time.perf_counter() - t0))
+        if int(client.state.cells_eaten.sum()) == eaten:
+            frames.append((t, frame))
+            planes.append(FT.to_kernel_arrays(client.state))
+    c = _counts()
+    _check(c["k3"] == 30 and c["k1"] == 30 and c["plain"] == 0,
+           f"client: K1 and K3 once a step ({c})")
+    _check(len(frames) >= 25, f"client: at least 25 steps without a "
+           f"cross-player eat ({len(frames)})")
+    for (t, frame), p in zip(frames, planes):
+        want = FS.frame_plain(client.cfg, client.ocfg, p)[0, 0]
+        diff = int((frame != want.cpu().numpy()[::-1]).any(-1).sum())
+        _check(diff == 0, f"client step {t}: {diff} pixels differ from "
+               f"K3's plain version")
+    held = len(frames)
+    lb = client.leaderboard()
+    print(f"[29 client] Client() (9 players, S=512 natural RGB, 1 tick a "
+          f"step), 30 steps steered by a circling mouse: K1 {c['k1']}x, K3 "
+          f"{c['k3']}x; {held} frames equal K3's plain version (0 pixels); "
+          f"{statistics.median(t_steps):.2f} ms per step (median, host "
+          f"clock); leaderboard top 3 {lb[:3]} | {gpu}", flush=True)
+    return {"counts": c, "ms": statistics.median(t_steps)}
+
+
+def _phase30(cfg, dev, s2, gpu) -> None:
+    """profiling.device_time_of on one K3 call against CUDA events;
+    StepTimer and trace on the card."""
+    from agarcl_tpu_torch import profiling
+    from agarcl_tpu_torch.obs.screen import ScreenObsConfig
+    from agarcl_tpu_torch.ops import fused_screen as FS
+    from agarcl_tpu_torch.ops import fused_tick as FT
+    scr = ScreenObsConfig(S_SCREEN, agent_view=True)
+    planes = FT.to_kernel_arrays(s2)
+    call = (lambda: FS.fused_screen_frame(cfg, scr, planes))
+    dt_ms = 1e3 * profiling.device_time_of(call, iters=20)
+    ev_ms = _event_ms(call, 20)
+    _check(0.5 < dt_ms / ev_ms < 2.0, f"device_time_of ({dt_ms} ms) near "
+           f"the CUDA-event time ({ev_ms} ms)")
+    timer = profiling.StepTimer()
+    timer.start()
+    for _ in range(5):
+        timer.tick(N_ENVS, call())
+    rate = timer.stop()["env_steps_per_sec"]
+    with profiling.trace() as prof:
+        call()
+        torch.cuda.synchronize(dev)
+    dev_us = sum(getattr(e, "self_device_time_total", 0.0)
+                 for e in prof.key_averages() if "screen" in e.key)
+    print(f"[30 profiling] K3 at {N_ENVS} envs, S={S_SCREEN} agent view: "
+          f"device_time_of {dt_ms:.4f} ms (median of 20, CUDA events around "
+          f"each call), CUDA events over 20 calls {ev_ms:.4f} ms per call; "
+          f"StepTimer {rate:,.0f} frames/s over 5 calls; trace(): the "
+          f"screen kernel's device time "
+          + (f"{dev_us / 1e3:.4f} ms" if dev_us > 0 else "not measured")
+          + f" | {gpu}", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1922,11 +2334,28 @@ def main() -> int:
                       for kind, (w, b) in gym_rates.items())
           + f" | {gpu}", flush=True)
 
+    # --- 24-30. the rim: rosters, frame routes, sharding, tools -------------
+    rim = {}
+    t_rim = time.perf_counter()
+    t_roster12 = _phase24(dev, gpu)
+    rim.update({f"route {lb}": c for lb, (_, c) in
+                _phase25(cfg, dev, gpu).items()})
+    shard = _phase26(cfg, ocfg, dev, acts, gpu)
+    rim["sharded ram"] = shard["counts"]
+    rim.update({f"bench {a}": c for a, c in _phase27(gpu).items()})
+    evaluator = _phase28(gpu)
+    rim["bot evaluator"] = evaluator["counts"]
+    client = _phase29(dev, gpu)
+    rim["client"] = client["counts"]
+    _phase30(cfg, dev, s2, gpu)
+    print(f"[24-30 rim] {time.perf_counter() - t_rim:.1f} s for phases "
+          f"24-30", flush=True)
+
     k1_bytes, k1_ops = _tick_work(cfg, ocfg, N, k)
     k2_bytes, k2_ops = _ram_work(cfg, ocfg, N)
     k1_bound, k2_bound = _bound_ms(k1_bytes, k1_ops), _bound_ms(k2_bytes,
                                                                  k2_ops)
-    print(json.dumps({"kernels": [
+    kernels = [
         {"name": "multi_step_tick", "route": "cuda",
          "source": "agarcl_tpu_torch/csrc/tick.cu",
          "replaces": "agarcl_tpu/ops/fused_tick.py:163",
@@ -2015,7 +2444,24 @@ def main() -> int:
          "launch_shape": {"g64_int16": k4_shape, "g128_int32": k4_big_shape,
                           "agents2": k4a_shape},
          "library_ms": None},
-    ]}))
+    ]
+    rim_launches = {"multi_step_tick": lambda c: c["k1"] - c["k1_tick"],
+                    "engine_tick": lambda c: c["k1_tick"],
+                    "ram_frame": lambda c: c["k2"],
+                    "screen_frame": lambda c: c["k3"],
+                    "grid_frame": lambda c: c["k4"]}
+    for entry in kernels:
+        for path, c in rim.items():
+            n_path = rim_launches[entry["name"]](c)
+            if n_path:
+                entry["launches"] += n_path
+                entry.setdefault("launches_by_path", {})[path] = n_path
+    print(json.dumps({"rim": {
+        "roster12_plain_step_ms": t_roster12,
+        "sharded_ram_ms": shard["ms"], "unsharded_ram_ms": shard["vecenv_ms"],
+        "bot_evaluator_env_steps_per_s": evaluator["rate"],
+        "client_step_ms": client["ms"]}}))
+    print(json.dumps({"kernels": kernels}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -47,9 +47,10 @@ def test_invalid_mode_raises():
 
 
 def test_port_runs_without_jax():
-    """Importing every module of the port (the gym wrapper, tasks, io and
-    GoBigger among them) and running CPU resets and steps, the gym core's
-    too, loads no JAX."""
+    """Importing every module of the port (the gym wrapper, tasks, io,
+    GoBigger, parallel, bench, the bot evaluator and the client among
+    them) and running CPU resets and steps, the gym core's, a
+    ShardedVecEnv's and a bench run too, loads no JAX."""
     code = (
         "import sys\n"
         "import torch\n"
@@ -75,6 +76,16 @@ def test_port_runs_without_jax():
         " num_pellets=20, mode=4)\n"
         "core.reset(seed=1)\n"
         "core.step(((0.5, 0.5), 0))\n"
+        "from agarcl_tpu_torch.parallel import ShardedVecEnv, make_env_mesh\n"
+        "sh = ShardedVecEnv(cfg, 4, make_env_mesh([torch.device('cpu')] * 2),"
+        " 'ram', backend='torch')\n"
+        "ss, so = sh.reset(0)\n"
+        "ss, so, sr, sd = sh.step(ss, torch.zeros(4, 1, 3))\n"
+        "assert len(so) == 2 and so[0].shape == (2, 1, 1, 195), so[0].shape\n"
+        "from agarcl_tpu_torch import bench\n"
+        "line = bench.main(['--device', 'cpu', '--envs', '2', '--steps', '1',"
+        " '--iters', '1'])\n"
+        "assert line['metric'] == 'env_steps_per_sec_per_chip_2envs_ram'\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in"
         " ('jax', 'jaxlib', 'flax', 'agarcl_tpu')]\n"
         "assert not bad, bad\n"

@@ -159,13 +159,20 @@ def test_engine_tick_eventful_free_run(mode):
 
 
 def test_engine_tick_refuses_bots():
+    """A roster above K1's 9-player cap (here 1 agent + 9 bots): the plain
+    engine ticks it, as the JAX package's XLA tick does, and only K1's
+    wrapper refuses it, naming the cap (tests/test_torch_rosters.py holds
+    such rosters against JAX)."""
     from agarcl_tpu_torch.env import env_reset
-    """Rosters above the 9-player cap (here 1 agent + 9 bots) raise."""
+    from agarcl_tpu_torch.ops import fused_tick as FT
     cfg = TCfg(num_agents=1, num_bots=9, arena_size=80, num_pellets=10,
                num_viruses=1, mode=0)
     s = env_reset(cfg, torch.arange(2))
-    with pytest.raises(NotImplementedError):
-        t_tick(cfg, s)
+    nxt = t_tick(cfg, s)
+    assert tuple(nxt.cell_mass.shape) == (2, 10, 16)
+    assert (nxt.ticks == 1).all() and nxt.player_alive().all()
+    with pytest.raises(NotImplementedError, match="9 players"):
+        FT.engine_tick_raw(cfg, FT.to_kernel_arrays(s), 1)
 
 
 def test_transcendentals_bit_equal():

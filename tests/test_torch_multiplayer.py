@@ -465,8 +465,8 @@ def test_above_nine_players_raises():
     cfg = TCfg(num_agents=1, num_bots=9, arena_size=80, num_pellets=10,
                num_viruses=1, mode=0)
     assert cfg.num_players == 10 and not TFT.supports(cfg)
-    with pytest.raises(NotImplementedError):
-        TVec(cfg, 2, "ram", backend="torch", device="cpu")
+    with pytest.raises(NotImplementedError, match="backend='torch'"):
+        TVec(cfg, 2, "ram", backend="cuda")
     planes = TFT.to_kernel_arrays(state_from_numpy(
         _np(_j_reset(tuple(sorted(dict(num_agents=1, num_bots=8,
                                        arena_size=80, num_pellets=10,
