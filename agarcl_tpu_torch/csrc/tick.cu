@@ -270,10 +270,11 @@ HD void elastic(V2& va, V2& vb, int ma, int mb, float dx, float dy,
   if (ma >= mb) vb = nb;
 }
 
-// avoid_static_overlap (physics.py::_avoid_static_overlap)
+// avoid_static_overlap (physics.py::_avoid_static_overlap); g is the
+// pair's offset for the distance and the axis (settle)
 HD void avoid_static(const EnvParams& p, V2& pa, V2& va, V2& pb, V2& vb,
-                     float ra, float rb) {
-  const float dx = pb.x - pa.x, dy = pb.y - pa.y;
+                     float ra, float rb, V2 g) {
+  const float dx = g.x, dy = g.y;
   const float dist = sqrtf(norm2(dx, dy));
   const float td = ra + rb;
   if (!(dist <= td)) return;
@@ -296,15 +297,21 @@ HD void avoid_static(const EnvParams& p, V2& pa, V2& va, V2& pb, V2& vb,
   if (by) vb.y = 0.0f;
 }
 
-// separate_cells (physics.py::_separate_cells)
+HD void avoid_static(const EnvParams& p, V2& pa, V2& va, V2& pb, V2& vb,
+                     float ra, float rb) {
+  avoid_static(p, pa, va, pb, vb, ra, rb, {pb.x - pa.x, pb.y - pa.y});
+}
+
+// separate_cells (physics.py::_separate_cells); g is the pair's offset
+// for the distance and the L1 ratio (settle), the signs take pb - pa
 HD void separate(V2& pa, V2& pb, int ma, int mb, float ra, float rb,
-                 float tgx, float tgy) {
+                 float tgx, float tgy, V2 g) {
   const float dx = pb.x - pa.x, dy = pb.y - pa.y;
-  const float dist = sqrtf(norm2(dx, dy));
+  const float dist = sqrtf(norm2(g.x, g.y));
   const float td = ra + rb;
   if (!(dist <= td)) return;
-  const float den = fmaxf(fabsf(dx) + fabsf(dy), 1e-12f);
-  const float rx = dx / den, ry = dy / den;
+  const float den = fmaxf(fabsf(g.x) + fabsf(g.y), 1e-12f);
+  const float rx = g.x / den, ry = g.y / den;
   const float depth = td - dist;
   const float diff_a = norm2(tgx - pa.x, tgy - pa.y);
   const float diff_b = norm2(tgx - pb.x, tgy - pb.y);
@@ -319,19 +326,23 @@ HD void separate(V2& pa, V2& pb, int ma, int mb, float ra, float rb,
 
 // the end of prevent_overlap (physics.py::_settle): from the moved-back
 // positions and the new velocities, move forward, the static / separate
-// fallback, the boundary clamp
+// fallback, the boundary clamp. The fallback's distance and axis come from
+// the pair moved forward with gva / gvb (the velocity outputs' form).
 HD void settle(const EnvParams& p, V2& pa, V2& va, V2 sa, int ma, V2& pb,
                V2& vb, V2 sb, int mb, float ra, float rb, float tgx,
-               float tgy) {
+               float tgy, V2 gva, V2 gvb) {
+  const V2 g = {
+      FMAF(gvb.x + sb.x, p.dt, pb.x) - FMAF(gva.x + sa.x, p.dt, pa.x),
+      FMAF(gvb.y + sb.y, p.dt, pb.y) - FMAF(gva.y + sa.y, p.dt, pa.y)};
   pa = {FMAF(va.x + sa.x, p.dt, pa.x), FMAF(va.y + sa.y, p.dt, pa.y)};
   pb = {FMAF(vb.x + sb.x, p.dt, pb.x), FMAF(vb.y + sb.y, p.dt, pb.y)};
   const float rs = ra + rb;
   const bool still = rs * rs >= norm2(pb.x - pa.x, pb.y - pa.y);
   const int dm = ma - mb;
   if (still && (dm < 0 ? -dm : dm) <= 10) {
-    avoid_static(p, pa, va, pb, vb, ra, rb);
+    avoid_static(p, pa, va, pb, vb, ra, rb, g);
   } else if (still) {
-    separate(pa, pb, ma, mb, ra, rb, tgx, tgy);
+    separate(pa, pb, ma, mb, ra, rb, tgx, tgy, g);
   }
   pa = clamp2(p, pa, ra);
   pb = clamp2(p, pb, rb);
@@ -344,8 +355,10 @@ HD bool same_bits(V2 a, V2 b) {
 
 // prevent_overlap (physics.py::_prevent_overlap): the new velocities are
 // settled from the velocity outputs' elastic form, the new positions from
-// the position outputs' (XLA computes them in two fusions); when the two
-// forms give the same bits, as they mostly do, one settle serves both
+// the position outputs' (XLA computes them in two fusions), with the
+// fallback's distance and axis in the velocity outputs' form for both;
+// when the two forms give the same bits, as they mostly do, one settle
+// serves both
 HD void prevent_overlap(const EnvParams& p, V2& pa, V2& va, V2 sa, int ma,
                         V2& pb, V2& vb, V2 sb, int mb, float tgx,
                         float tgy) {
@@ -357,13 +370,14 @@ HD void prevent_overlap(const EnvParams& p, V2& pa, V2& va, V2 sa, int ma,
   V2 va_p = va, vb_p = vb;
   elastic(va, vb, ma, mb, dx0, dy0, dist0, false);
   elastic(va_p, vb_p, ma, mb, dx0, dy0, dist0, true);
+  const V2 gva = va, gvb = vb;
   if (same_bits(va, va_p) && same_bits(vb, vb_p)) {
-    settle(p, pa, va, sa, ma, pb, vb, sb, mb, ra, rb, tgx, tgy);
+    settle(p, pa, va, sa, ma, pb, vb, sb, mb, ra, rb, tgx, tgy, gva, gvb);
     return;
   }
   V2 qa = pa, qb = pb;
-  settle(p, qa, va, sa, ma, qb, vb, sb, mb, ra, rb, tgx, tgy);
-  settle(p, pa, va_p, sa, ma, pb, vb_p, sb, mb, ra, rb, tgx, tgy);
+  settle(p, qa, va, sa, ma, qb, vb, sb, mb, ra, rb, tgx, tgy, gva, gvb);
+  settle(p, pa, va_p, sa, ma, pb, vb_p, sb, mb, ra, rb, tgx, tgy, gva, gvb);
 }
 
 HD int lowest_bit(uint32_t m) {

@@ -114,15 +114,18 @@ def _l1_ratio(dxy):
 
 
 def _avoid_static_overlap(pos_a, vel_a, pos_b, vel_b, rad_a, rad_b,
-                          arena_w, arena_h):
+                          arena_w, arena_h, dxy_g=None):
     """avoid_static_overlap: push the pair apart along the L1-normalized
     axis by the overlap depth; a cell pinned at a border moves the full
-    depth and zeroes that velocity component (exact float equality)."""
-    dxy = pos_b - pos_a
-    dist = G.vec_norm(dxy)
+    depth and zeroes that velocity component (exact float equality).
+    `dxy_g` (default pos_b - pos_a) is the pair's offset for the distance
+    and the axis (`_settle`)."""
+    if dxy_g is None:
+        dxy_g = pos_b - pos_a
+    dist = G.vec_norm(dxy_g)
     target_dist = rad_a + rad_b
     overlapping = dist <= target_dist
-    rd = _l1_ratio(dxy) * (target_dist - dist)[..., None]
+    rd = _l1_ratio(dxy_g) * (target_dist - dist)[..., None]
 
     def border_scale(pos, rad, vel):
         at_lo = pos == torch.stack([rad, rad], dim=-1)
@@ -142,14 +145,17 @@ def _avoid_static_overlap(pos_a, vel_a, pos_b, vel_b, rad_a, rad_b,
             _w(ow, new_b, pos_b), _w(ow, vel_b2, vel_b))
 
 
-def _separate_cells(pos_a, pos_b, mass_a, mass_b, rad_a, rad_b, target):
+def _separate_cells(pos_a, pos_b, mass_a, mass_b, rad_a, rad_b, target,
+                    dxy_g):
     """separate_cells: moves only the smaller cell by the full depth, its
-    direction decided by the mass / target-distance sign votes."""
+    direction decided by the mass / target-distance sign votes. `dxy_g` is
+    the pair's offset for the distance and the L1 ratio (`_settle`); the
+    direction signs take pos_b - pos_a."""
     dxy = pos_b - pos_a
-    dist = G.vec_norm(dxy)
+    dist = G.vec_norm(dxy_g)
     target_dist = rad_a + rad_b
     overlapping = dist <= target_dist
-    ratio = _l1_ratio(dxy)
+    ratio = _l1_ratio(dxy_g)
     depth = target_dist - dist
     da = target - pos_a
     db = target - pos_b
@@ -170,10 +176,14 @@ def _separate_cells(pos_a, pos_b, mass_a, mass_b, rad_a, rad_b, target):
 
 
 def _settle(pos_a, vel_a, svel_a, mass_a, pos_b, vel_b, svel_b, mass_b,
-            rad_a, rad_b, target, arena_w, arena_h, dt):
+            rad_a, rad_b, target, arena_w, arena_h, dt, geo_vel):
     """The end of prevent_overlap from the moved-back positions and the new
     velocities: move both forward one dt, the static/separate fallback if
-    still touching, the boundary clamp."""
+    still touching, the boundary clamp. The fallback's distance and L1 axis
+    come from the pair moved forward with geo_vel = (vel_a, vel_b) of the
+    velocity outputs' form (`_prevent_overlap`)."""
+    dxy_g = (fma32(geo_vel[1] + svel_b, dt, pos_b)
+             - fma32(geo_vel[0] + svel_a, dt, pos_a))
     pos_a = fma32(vel_a + svel_a, dt, pos_a)
     pos_b = fma32(vel_b + svel_b, dt, pos_b)
     d1 = pos_b - pos_a
@@ -182,9 +192,9 @@ def _settle(pos_a, vel_a, svel_a, mass_a, pos_b, vel_b, svel_b, mass_b,
     near_mass = (mass_a - mass_b).abs() <= 10
 
     sa_pa, sa_va, sa_pb, sa_vb = _avoid_static_overlap(
-        pos_a, vel_a, pos_b, vel_b, rad_a, rad_b, arena_w, arena_h)
+        pos_a, vel_a, pos_b, vel_b, rad_a, rad_b, arena_w, arena_h, dxy_g)
     sc_pa, sc_pb = _separate_cells(pos_a, pos_b, mass_a, mass_b, rad_a,
-                                   rad_b, target)
+                                   rad_b, target, dxy_g)
     use_static = (still & near_mass)[..., None]
     use_sep = (still & ~near_mass)[..., None]
     pos_a = _w(use_static, sa_pa, _w(use_sep, sc_pa, pos_a))
@@ -202,7 +212,9 @@ def _prevent_overlap(pos_a, vel_a, svel_a, mass_a, pos_b, vel_b, svel_b,
     from the pre-move-back positions), then `_settle`. XLA-CPU computes the
     new velocities and the new positions in two fusions, each with its own
     form of the elastic velocities (`_elastic`), so each output is settled
-    from its own."""
+    from its own; but the fallback's distance and L1 axis are computed in
+    fusions that see the negation of n.y, in the velocity outputs' form,
+    for both outputs."""
     rad_a, rad_b = G.radius(mass_a), G.radius(mass_b)
     dxy0 = pos_b - pos_a
     dist0 = G.vec_norm(dxy0)
@@ -212,7 +224,7 @@ def _prevent_overlap(pos_a, vel_a, svel_a, mass_a, pos_b, vel_b, svel_b,
                                           dxy0, dist0)
     pos_a, vel_a, pos_b, vel_b = _settle(
         back_a, va_v, svel_a, mass_a, back_b, vb_v, svel_b, mass_b, rad_a,
-        rad_b, target, arena_w, arena_h, dt)
+        rad_b, target, arena_w, arena_h, dt, (va_v, vb_v))
     # the pairs whose two forms differ in a bit (few) settle their
     # positions again from the position outputs' form
     differ = ((va_p != va_v) | (vb_p != vb_v)).any(-1)
@@ -223,7 +235,8 @@ def _prevent_overlap(pos_a, vel_a, svel_a, mass_a, pos_b, vel_b, svel_b,
             return x.expand(differ.shape + x.shape[differ.dim():])[idx]
         pa, _, pb, _ = _settle(*(pick(x) for x in (
             back_a, va_p, svel_a, mass_a, back_b, vb_p, svel_b, mass_b,
-            rad_a, rad_b, target)), arena_w, arena_h, dt)
+            rad_a, rad_b, target)), arena_w, arena_h, dt,
+            (pick(va_v), pick(vb_v)))
         pos_a = pos_a.clone()
         pos_b = pos_b.clone()
         pos_a[idx] = pa

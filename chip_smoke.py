@@ -13,7 +13,9 @@ task suite's duel (mode 10: one agent against an AggressiveShy bot) on the
 screen path, its RAM path and mode 0 with bots; then polygon screens and
 two agents' frames; then the rim: a 12-player roster on the plain engine,
 the frame routes by size, ShardedVecEnv, the port's bench, the bot
-evaluator, the client and profiling. Phases, one line each:
+evaluator, the client and profiling; then the trainer (PPO on K1) and
+the witnesses (K1 against the C++ oracle, the port against the reference
+engine). Phases, one line each:
 
   1. toolchain: GPU name and power limit, torch and CUDA versions, nvcc,
      kernel build time, ptxas registers, stack and spills per kernel;
@@ -152,12 +154,42 @@ evaluator, the client and profiling. Phases, one line each:
      without a cross-player eat equal to K3's plain version on the planes
      of the state after the step;
  30. profiling: device_time_of on one K3 call against CUDA events,
-     StepTimer, and trace() (the screen kernel's device time).
+     StepTimer, and trace() (the screen kernel's device time);
+ 31. PPO (agarcl_tpu_torch/train_ppo.py) in examples/train_ppo.py's task
+     (mode 3, arena 60, 200 pellets) at 8192 envs x 16 steps x 200
+     iterations: K1 once a rollout step, K2 once at reset; K1's first
+     rollout step and a step after the run bit-equal to its plain version
+     (planes, RAM frame, info rows); a finite loss every iteration; it
+     learns: the mean reward per step over the 200 iterations above the
+     same run's with lr 0 (the example's first 5 / last 5 iterations line
+     is printed, not held: it falls for the example itself at this
+     length); one iteration from the same parameters, states and noise on
+     the card and on the CPU at 64 envs (loss within rtol 1e-4,
+     parameters within 0.1 lr, mean reward equal); the training rate, the
+     split of an iteration between rollout and update (CUDA events), K1's
+     share of the rollout, the device busy share; the CLI for 10
+     iterations;
+ 32. each oracle configuration's first 5 steps on K1 bit-equal to the
+     plain engine on the card; then K1 against the C++ oracle
+     (agarcl_tpu_torch/oracle.py, built from oracle/oracle.cpp) on
+     tests/test_parity.py's scenarios and seeds (PCFG random walk seeds
+     0-2 and splits/feeds seed 7, DUEL seed 11, mode 0 with 4 bots seed 5)
+     at its bars, every step;
+ 33. each drift scenario's configuration (5 steps of 12 envs) and the
+     recombine probe's one-tick calls (8 ticks) on K1 bit-equal to the
+     plain engine on the card; then tests/test_drift.py's three scenarios
+     (chase, virusfeed, selffeed; 12 seeds x 120 steps) with the port's
+     run_ours on the card against the reference engine (drift/libref.so)
+     at that file's bars; then
+     `python -m agarcl_tpu_torch.drift --report chiprun_out/DRIFT_torch.md
+     --quick` in process, timed.
 
 Then a JSON line of the rim's own figures ("rim": the 12-player plain
 step, sharded and unsharded call times, the bot evaluator's rate and the
-client's step, none of them a kernel's), a JSON line describing each
-kernel (its launches by path include phases 24-30's), the GPU line and,
+client's step, none of them a kernel's), a JSON line of the trainer's
+figures ("trainer": phase 31's rate, split and shares, and the drift
+report's wall time), a JSON line describing each kernel (its launches by
+path include phases 24-33's), the GPU line and,
 last, the device JSON line. Every screen and grid step runs K1 through
 engine_tick_raw, so the JSON line lists those launches under
 "engine_tick" and the RAM and GoBigger paths' under "multi_step_tick".
@@ -176,6 +208,7 @@ import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -1467,6 +1500,440 @@ def _phase30(cfg, dev, s2, gpu) -> None:
           + f" | {gpu}", flush=True)
 
 
+# ------------------------------------------- the trainer and the witnesses
+N_PPO, T_PPO, ITERS_PPO = 8192, 16, 200  # README.md:124-127's size
+N_PPO_CPU = 64                           # envs of the card-vs-CPU iteration
+LR_PPO = 3e-4                            # examples/train_ppo.py's --lr
+PPO_LOSS_RTOL = 1e-4
+PPO_PARAM_ATOL = 0.1 * LR_PPO            # tests/test_torch_ppo.py's bar
+ORACLE_POS_TOL = 2e-2                    # tests/test_parity.py:22-67
+DRIFT_SEEDS, DRIFT_STEPS = list(range(1, 13)), 120   # tests/test_drift.py
+
+
+def _k1_plain_step(cfg, planes, actions, ocfg, label) -> None:
+    """One K1 step (multi_step_raw) and its plain version on the card, from
+    copies of the same planes and actions: every plane, the RAM frame and
+    the (mass, alive) rows bit-equal."""
+    from agarcl_tpu_torch.ops import fused_tick as FT
+    names = {i: f for f, idx in FT.PLANE_INDEX.items() for i in idx}
+    pk, ok, ik = FT.multi_step_raw(cfg, [p.clone() for p in planes],
+                                   actions, 1, ocfg)
+    pp, op, ip = FT.multi_step_raw_plain(cfg, [p.clone() for p in planes],
+                                         actions, 1, ocfg)
+    bad = sorted({names[i] for i, (a, b) in enumerate(zip(pk, pp))
+                  if not torch.equal(a, b)})
+    _check(not bad, f"{label}: K1's planes bit-equal to its plain "
+           f"version's (differ: {bad})")
+    _check(torch.equal(ok, op) and torch.equal(ik, ip), f"{label}: K1's "
+           f"RAM frame and info rows bit-equal to its plain version's")
+
+
+def _k1_plain_env_steps(cfg, seeds, dev, label) -> None:
+    """5 VecEnv.step calls from env_reset(seeds) on K1 (backend
+    "cuda") and on the plain engine on the card (backend "torch"), with
+    random actions (splits and feeds among them): every state field, the
+    rewards and the dones bit-equal after each step."""
+    from agarcl_tpu_torch.env import env_reset
+    from agarcl_tpu_torch.state import STATE_FIELDS
+    from agarcl_tpu_torch.vec import VecEnv
+    n = len(seeds)
+    sk = sp = env_reset(cfg, torch.tensor(seeds, dtype=torch.int64,
+                                          device=dev))
+    acts = _random_actions(n, dev, cfg.num_agents)
+    env_k, env_p = (VecEnv(cfg, n, "none", backend=b, device=dev)
+                    for b in ("cuda", "torch"))
+    for t in range(5):
+        sk, _, rk, dk = env_k.step(sk, acts)
+        sp, _, rp, dp = env_p.step(sp, acts)
+        bad = [f for f in STATE_FIELDS
+               if not torch.equal(getattr(sk, f), getattr(sp, f))]
+        _check(not bad and torch.equal(rk, rp) and torch.equal(dk, dp),
+               f"{label}: step {t + 1} on K1 bit-equal to the plain engine "
+               f"(fields differ: {bad})")
+
+
+def _ppo_actions(TP, policy, obs, generator):
+    """The rollout's actions for obs (N, A, R) (train_ppo.make_train):
+    sample_action on agent 0 with the generator's next noise draw, act
+    0."""
+    n = obs.shape[0]
+    noise = torch.randn((n, 2), generator=generator, device=obs.device)
+    with torch.no_grad():
+        act = TP.sample_action(policy, obs[:, 0], noise)[0]
+    zeros = torch.zeros((n, 1), device=obs.device)
+    return torch.cat([act, zeros], dim=-1)[:, None, :]
+
+
+def _ppo_card_vs_cpu(TP, dev):
+    """One train_iter from the same parameters, states and noise on the
+    card (K1) and on the CPU (the plain engine) at N_PPO_CPU envs. Returns
+    (loss, |loss diff| / |loss|, max |param diff|)."""
+    from agarcl_tpu_torch.obs.ram import RamObsConfig
+    cfg, n = TP.task_config(), N_PPO_CPU
+    init_c, train_c, reset_c = TP.make_train(
+        cfg, RamObsConfig(), n, T_PPO, LR_PPO, device=dev,
+        generator=torch.Generator(dev).manual_seed(0))
+    init_p, train_p, reset_p = TP.make_train(
+        cfg, RamObsConfig(), n, T_PPO, LR_PPO, device="cpu")
+    pol_c, opt_c = init_c()
+    pol_p, opt_p = init_p()
+    pol_p.load_state_dict({k: v.cpu() for k, v in
+                           pol_c.state_dict().items()})
+    noise = torch.randn((T_PPO, n, 2),
+                        generator=torch.Generator().manual_seed(1))
+    res_c, obs_c = reset_c(torch.arange(n))
+    res_p, obs_p = reset_p(torch.arange(n))
+    _, _, loss_c, mr_c = train_c(pol_c, opt_c, res_c, obs_c, noise)
+    _, _, loss_p, mr_p = train_p(pol_p, opt_p, res_p, obs_p, noise)
+    loss_c, loss_p = loss_c.item(), loss_p.item()
+    rel = abs(loss_c - loss_p) / abs(loss_p)
+    _check(rel <= PPO_LOSS_RTOL, f"PPO card vs CPU: loss {loss_c} vs "
+           f"{loss_p} within rtol {PPO_LOSS_RTOL}")
+    _check(mr_c.item() == mr_p.item(), f"PPO card vs CPU: mean reward "
+           f"{mr_c.item()} vs {mr_p.item()}")
+    perr = max((a.detach().cpu() - b.detach()).abs().max().item()
+               for a, b in zip(pol_c.parameters(), pol_p.parameters()))
+    _check(perr <= PPO_PARAM_ATOL, f"PPO card vs CPU: parameters within "
+           f"{PPO_PARAM_ATOL} ({perr})")
+    return loss_p, rel, perr
+
+
+def _ppo_run(TP, dev, lr: float):
+    """ITERS_PPO train_iter calls at N_PPO envs from per-env seeds
+    0..N-1 and a device generator seeded 0. Returns (policy, optimizer,
+    train_iter, resident state, obs, losses (iters,), mean rewards
+    (iters,), per-iteration CUDA events (start, update start, end), host
+    seconds of iterations 5 on, host ms to issue each iteration)."""
+    from agarcl_tpu_torch.obs.ram import RamObsConfig
+    init, train_iter, reset = TP.make_train(
+        TP.task_config(), RamObsConfig(), N_PPO, T_PPO, lr, device=dev,
+        generator=torch.Generator(dev).manual_seed(0))
+    policy, opt = init()
+    res, obs = reset(torch.arange(N_PPO))
+    marks, orig = [], TP.ppo_loss
+
+    def marked(*a, **kw):               # the update starts here
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append(ev)
+        return orig(*a, **kw)
+
+    losses, rewards, spans, issue = [], [], [], []
+    TP.ppo_loss = marked
+    try:
+        for it in range(ITERS_PPO):
+            if it == 5:
+                torch.cuda.synchronize(dev)
+                t0 = time.perf_counter()
+            e0, e1 = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+            e0.record()
+            h0 = time.perf_counter()
+            res, obs, loss, mr = train_iter(policy, opt, res, obs)
+            issue.append(1e3 * (time.perf_counter() - h0))
+            e1.record()
+            _check(len(marks) == it + 1, "PPO: the update's event recorded "
+                   "once an iteration (train_iter calls ppo_loss)")
+            spans.append((e0, marks[-1], e1))
+            losses.append(loss)
+            rewards.append(mr)
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+    finally:
+        TP.ppo_loss = orig
+    return (policy, opt, train_iter, res, obs, torch.stack(losses).cpu(),
+            torch.stack(rewards).cpu(), spans, wall, issue)
+
+
+def _phase31(dev, gpu) -> dict:
+    """PPO (agarcl_tpu_torch/train_ppo.py) at 8192 envs x 16 steps x 200
+    iterations in the example's task: K1 once a rollout step, K2 once at
+    reset; finite losses; it learns: its mean reward per step over the 200
+    iterations above that of the same run with lr 0 (the initial policy,
+    same seeds and noise). The example's closing line (first 5 against
+    last 5 iterations) is printed, not held: the envs are never reset, the
+    agents grow and slow down, and the reward per step falls late in the
+    run for the example itself too. One iteration equal on the card and
+    the CPU at 64 envs; the rate, the split of an iteration between
+    rollout and update (CUDA events), K1's share of the rollout and the
+    device busy share; the CLI on the card."""
+    from agarcl_tpu_torch import train_ppo as TP
+    from agarcl_tpu_torch.obs.ram import RamObsConfig
+    from agarcl_tpu_torch.ops import fused_tick as FT
+    _check(not torch.backends.cuda.matmul.allow_tf32,
+           "TF32 off for the policy's products")
+    loss_ref, loss_rel, perr = _ppo_card_vs_cpu(TP, dev)
+    cfg, n = TP.task_config(), N_PPO
+    # the main path's first K1 launch (its policy, reset and noise draw)
+    # against the plain version
+    gen = torch.Generator(dev).manual_seed(0)
+    init, _, reset = TP.make_train(cfg, RamObsConfig(), n, T_PPO, LR_PPO,
+                                   device=dev, generator=gen)
+    pol0, _ = init()
+    res0, obs0 = reset(torch.arange(n))
+    _k1_plain_step(cfg, res0.raw, _ppo_actions(TP, pol0, obs0, gen),
+                   RamObsConfig(), "PPO: the first rollout step")
+    del pol0, res0, obs0
+    _zero_counts()
+    (policy, opt, train_iter, res, obs, losses, rewards, spans, wall,
+     issue) = _ppo_run(TP, dev, LR_PPO)
+    c = _counts()
+    _check(c["k1"] == ITERS_PPO * T_PPO and c["k2"] == 1
+           and c["plain"] == 0, f"PPO: K1 once a rollout step, K2 once at "
+           f"reset, no plain version ({c})")
+    _check(bool(torch.isfinite(losses).all()), "PPO: a finite loss every "
+           "iteration")
+    _k1_plain_step(cfg, res.raw, _ppo_actions(
+        TP, policy, obs, torch.Generator(dev).manual_seed(2)),
+        RamObsConfig(), f"PPO: a rollout step after {ITERS_PPO} iterations")
+    frozen = _ppo_run(TP, dev, 0.0)[6]
+    trained_mean, frozen_mean = rewards.mean().item(), frozen.mean().item()
+    _check(trained_mean > frozen_mean, f"PPO learns: mean reward per step "
+           f"over {ITERS_PPO} iterations ({trained_mean}) above the "
+           f"initial policy's ({frozen_mean})")
+    early, late = rewards[:5].mean().item(), rewards[-5:].mean().item()
+    peak = max(rewards[i:i + 5].mean().item()
+               for i in range(ITERS_PPO - 4))
+    rate = (ITERS_PPO - 5) * n * T_PPO / wall
+    roll = statistics.median(a.elapsed_time(b) for a, b, _ in spans[5:])
+    upd = statistics.median(b.elapsed_time(e) for _, b, e in spans[5:])
+    host = statistics.median(issue[5:])
+    # K1 alone at one rollout step of this config and size (CUDA events)
+    planes = [p.clone() for p in res.raw]
+    acts = _random_actions(n, dev)
+    acts[..., 2] = 0                    # the policy never splits or feeds
+    k1_ms = _event_ms(lambda: FT.multi_step_raw(cfg, planes, acts, 1,
+                                                RamObsConfig()), 20)
+    prof = _device_profile(lambda: train_iter(policy, opt, res, obs), dev)
+    busy = ("not measured (the profiler saw no device time)" if prof is None
+            else f"{100 * prof[0]:.1f}%")
+    with contextlib.redirect_stdout(io.StringIO()) as cli:
+        cli_early, cli_late = TP.main(["--envs", str(n), "--iters", "10"])
+    _check(cli.getvalue().splitlines()[-1].startswith(
+        "reward/step improved:") and math.isfinite(cli_late),
+           "python -m agarcl_tpu_torch.train_ppo on the card")
+    print(f"[31 PPO] train_ppo at {n} envs x {T_PPO} steps x {ITERS_PPO} "
+          f"iterations (mode 3, arena 60, 200 pellets): K1 {c['k1']}x, K2 "
+          f"{c['k2']}x, plain 0; K1 bit-equal to its plain version on the "
+          f"first rollout step and on a step after the run (planes, RAM "
+          f"frame, info rows); losses finite; mean reward per step over "
+          f"the run {trained_mean:.4f} against {frozen_mean:.4f} with lr 0; "
+          f"{early:.4f} (first 5) -> {late:.4f} (last 5), best 5 "
+          f"{peak:.4f}; "
+          f"{rate:,.0f} env-steps/s over iterations 5-{ITERS_PPO - 1} (host "
+          f"clock, synchronized); an iteration {roll + upd:.3f} ms = rollout "
+          f"{roll:.3f} + update {upd:.3f} (CUDA events, medians), the host "
+          f"{host:.3f} ms to issue it (no synchronisation inside); K1 "
+          f"{k1_ms:.4f} ms per step alone, {100 * T_PPO * k1_ms / roll:.1f}% "
+          f"of the rollout; device busy {busy} of one iteration by "
+          f"torch.profiler; at {N_PPO_CPU} envs one iteration on the card "
+          f"and on the CPU: loss {loss_ref:.6f}, relative diff "
+          f"{loss_rel:.3g} (rtol {PPO_LOSS_RTOL}), max |param diff| "
+          f"{perr:.3g} (bar {PPO_PARAM_ATOL:.1e} = 0.1 lr), mean reward "
+          f"equal; the CLI at {n} envs x 10 iterations: {cli_early:.4f} -> "
+          f"{cli_late:.4f} | {gpu}", flush=True)
+    return {"counts": c, "env_steps_per_s": rate, "rollout_ms": roll,
+            "update_ms": upd, "issue_ms": host, "k1_step_ms": k1_ms,
+            "k1_share_of_rollout": T_PPO * k1_ms / roll,
+            "busy_share": None if prof is None else prof[0],
+            "mean_reward": trained_mean, "mean_reward_lr0": frozen_mean,
+            "early": early, "late": late, "best5": peak}
+
+
+def _oracle_state_err(s, i, o, label, pos_tol) -> float:
+    """tests/test_parity.py::compare_states for env i of a GameState on the
+    card against an OracleEnv state; returns the max live cell position
+    error."""
+    alive = s.cell_alive[i].cpu().numpy()
+    eq = np.array_equal
+    _check(eq(alive, o["cell_alive"].astype(bool))
+           and eq(s.cell_mass[i].cpu().numpy() * alive,
+                  o["cell_mass"] * o["cell_alive"])
+           and eq(s.pellet_alive[i].cpu().numpy(), o["pellet_alive"])
+           and eq(s.virus_alive[i].cpu().numpy(),
+                  o["virus_alive"].astype(bool))
+           and eq(s.food_eaten[i].cpu().numpy(), o["food_eaten"]),
+           f"{label}: integer fields equal the oracle's")
+    if not alive.any():
+        return 0.0
+    err = float(np.abs(s.cell_pos[i].cpu().numpy()[alive]
+                       - o["cell_pos"][alive]).max())
+    _check(err < pos_tol, f"{label}: cell_pos within {pos_tol} ({err})")
+    return err
+
+
+ORACLE_RUNS = (  # (label, EnvConfig kwargs, seeds, steps, policy, pos_tol)
+    ("PCFG random walk", dict(num_agents=1, ticks_per_step=4, arena_size=100,
+                              num_pellets=50, num_viruses=3, mode=3),
+     (0, 1, 2), 25, "walk", 2e-2),
+    ("PCFG splits and feeds", dict(num_agents=1, ticks_per_step=4,
+                                   arena_size=100, num_pellets=50,
+                                   num_viruses=3, mode=3),
+     (7,), 25, "splits_feeds", 2e-2),
+    ("DUEL", dict(num_agents=1, ticks_per_step=4, arena_size=100,
+                  num_pellets=50, num_viruses=2, mode=7), (11,), 20, "walk",
+     2e-2),
+    ("mode 0 full game", dict(num_agents=1, ticks_per_step=4, arena_size=100,
+                              num_pellets=50, num_viruses=2, num_bots=4,
+                              mode=0), (5,), 20, "walk", 5e-2),
+)
+
+
+def _phase32(dev, gpu) -> dict:
+    """K1 (VecEnv(backend="cuda"), one env per seed) against the C++
+    oracle through the port's binding (agarcl_tpu_torch/oracle.py) on
+    tests/test_parity.py's scenarios and seeds, at its bars: integer
+    fields exact, cell_pos within 2e-2 (5e-2 in mode 0), rewards within
+    1e-3, dones equal, every step."""
+    from agarcl_tpu_torch import EnvConfig
+    from agarcl_tpu_torch import oracle as TO
+    from agarcl_tpu_torch.env import env_reset
+    from agarcl_tpu_torch.vec import VecEnv
+    t0 = time.perf_counter()
+    TO.build()
+    build_s = time.perf_counter() - t0
+    for label, kw, seeds, *_ in ORACLE_RUNS:
+        _k1_plain_env_steps(EnvConfig(**kw), list(seeds), dev, label)
+    _zero_counts()
+    out = []
+    for label, kw, seeds, steps, policy, tol in ORACLE_RUNS:
+        cfg = EnvConfig(**kw)
+        env = VecEnv(cfg, len(seeds), "none", device=dev)
+        s = env_reset(cfg, torch.tensor(seeds, dtype=torch.int64,
+                                        device=dev))
+        oes = [TO.OracleEnv(cfg) for _ in seeds]
+        for oe, seed in zip(oes, seeds):
+            oe.reset(seed)
+        rngs = [np.random.default_rng(seed) for seed in seeds]
+        err = max(_oracle_state_err(s, i, oe.get_state(), f"{label} reset",
+                                    tol) for i, oe in enumerate(oes))
+        for t in range(steps):
+            acts = []
+            for rng in rngs:
+                act = 0.0
+                if policy == "splits_feeds":
+                    act = 2.0 if t % 7 == 3 else (1.0 if t % 7 == 5 else 0.0)
+                acts.append(np.concatenate([rng.uniform(-1, 1, (1, 2)),
+                                            np.full((1, 1), act)], axis=1))
+            acts = np.stack(acts).astype(np.float32)
+            s, _, r, d = env.step(s, torch.from_numpy(acts).to(dev))
+            r, d = r.cpu().numpy(), d.cpu().numpy()
+            for i, oe in enumerate(oes):
+                orew, od = oe.step(acts[i])
+                lb = f"{label} seed {seeds[i]} step {t}"
+                err = max(err, _oracle_state_err(s, i, oe.get_state(), lb,
+                                                 tol))
+                _check(np.abs(r[i] - orew).max() <= 1e-3,
+                       f"{lb}: rewards within 1e-3 ({r[i]} vs {orew})")
+                _check(np.array_equal(d[i], od), f"{lb}: dones equal")
+        out.append(f"{label} seeds {list(seeds)} x {steps} steps: max "
+                   f"cell_pos err {err:.3g}")
+    c = _counts()
+    n_steps = sum(r[3] for r in ORACLE_RUNS)
+    _check(c["k1"] == n_steps and c["plain"] == 0, f"oracle runs: K1 once "
+           f"a step, no plain version ({c})")
+    print(f"[32 oracle] each configuration's first 5 steps on K1 bit-equal "
+          f"to the plain engine on the card; K1 against the C++ oracle "
+          f"(agarcl_tpu_torch/oracle.py, built in {build_s:.2f} s): "
+          + "; ".join(out)
+          + f"; integer fields, rewards (1e-3) and dones equal every step; "
+          f"K1 {c['k1']}x | {gpu}", flush=True)
+    return {"counts": c}
+
+
+def _phase33(dev, gpu) -> dict:
+    """tests/test_drift.py's three scenarios with the port's run_ours on
+    the card (K1) against the reference engine (drift/libref.so) at that
+    file's bars; then the quick scenario report through the port's CLI
+    into chiprun_out/DRIFT_torch.md, timed."""
+    from agarcl_tpu_torch import drift as TD
+    from agarcl_tpu_torch.env import env_reset
+    from agarcl_tpu_torch.ops import fused_tick as FT
+    crit = 1.63 * np.sqrt(2 / len(DRIFT_SEEDS))
+    seeds, steps = DRIFT_SEEDS, DRIFT_STEPS
+    for title, _, kw, _, _ in TD.SCENARIOS:
+        _k1_plain_env_steps(TD.scenario_config(**kw), seeds, dev, title)
+    # the recombine probe's one-tick calls: a split, then ticks without
+    # actions, K1 against its plain version
+    mcfg = TD.MERGE_CFG
+    planes = FT.to_kernel_arrays(env_reset(mcfg, torch.tensor(
+        [3], dtype=torch.int64, device=dev)))
+    split = torch.tensor([[[0.5, 0.0, 2.0]]], device=dev)
+    for t in range(8):
+        a = split if t == 0 else None
+        pk = FT.engine_tick_raw(mcfg, [p.clone() for p in planes], 1, None,
+                                a)[0]
+        planes = FT.engine_tick_raw_plain(mcfg, planes, 1, None, a)[0]
+        _check(all(torch.equal(x, y) for x, y in zip(pk, planes)),
+               f"recombine probe tick {t + 1}: K1 bit-equal to its plain "
+               f"version")
+    _zero_counts()
+    t0 = time.perf_counter()
+    rows = {}
+    for policy, kw in (
+            ("chase", dict(mode=4, num_pellets=200, num_viruses=2,
+                           arena=100)),
+            ("virusfeed", dict(mode=4, num_pellets=300, num_viruses=6,
+                               arena=80)),
+            ("selffeed", dict(mode=4, num_pellets=200, num_viruses=2,
+                              arena=100))):
+        ref = TD.run_reference(seeds, steps, policy=policy, **kw)
+        ours = TD.run_ours(seeds, steps, policy=policy, device=dev, **kw)
+        rows[policy] = TD.compare(ref, ours, steps)
+    t_runs = time.perf_counter() - t0
+    c = _counts()
+    _check(c["k1"] == 3 * steps and c["plain"] == 0,
+           f"drift runs: K1 once a step, no plain version ({c})")
+    ch = rows["chase"]
+    for cp in (steps // 4 + 1, steps // 2 + 1, steps):
+        r, o = ch[f"mean_mass@{cp}"]
+        _check(abs(o - r) / r < 0.10, f"chase mean mass @{cp}: {o} vs {r}")
+    _check(ch["final_mass_ks"] < crit, f"chase final-mass KS "
+           f"{ch['final_mass_ks']} < {crit}")
+    r, o = ch["mean_food_eaten"]
+    _check(abs(o - r) / r < 0.10, f"chase food eaten {o} vs {r}")
+    r, o = ch["mean_pellets"]
+    _check(abs(o - r) / r < 0.05, f"chase pellets {o} vs {r}")
+    r, o = rows["virusfeed"]["mean_virus_traj"]
+    _check(abs(o - r) / r < 0.05, f"virusfeed mean viruses {o} vs {r}")
+    r, o = rows["virusfeed"]["max_virus_traj"]
+    _check(abs(o - r) <= 1, f"virusfeed max viruses {o} vs {r}")
+    r, o = rows["selffeed"][f"mean_mass@{steps}"]
+    _check(abs(o - r) / r < 0.10, f"selffeed mean mass {o} vs {r}")
+    r, o = rows["selffeed"]["mean_food_traj"]
+    _check(abs(o - r) < 1.0, f"selffeed mean foods {o} vs {r}")
+    path = Path(__file__).resolve().parent / "chiprun_out" / "DRIFT_torch.md"
+    path.parent.mkdir(exist_ok=True)
+    _zero_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as cli:
+        TD.main(["--report", str(path), "--quick"])
+    t_report = time.perf_counter() - t0
+    rc = _counts()
+    _check(path.stat().st_size > 0 and rc["k1"] > 0 and rc["plain"] == 0,
+           f"drift report written through K1 ({rc})")
+    summ = "; ".join(ln.strip() for ln in cli.getvalue().splitlines()
+                     if "KS" in ln)
+    print(f"[33 drift] the {len(TD.SCENARIOS)} scenarios' configurations "
+          f"(5 steps of {len(seeds)} envs) and the recombine probe (8 "
+          f"one-tick calls) on K1 bit-equal to the plain engine on the card;"
+          f" {len(seeds)} seeds x {steps} steps, run_ours on the "
+          f"card against the reference engine (drift/libref.so) in "
+          f"{t_runs:.1f} s: chase mean mass @{steps} "
+          f"{ch[f'mean_mass@{steps}'][1]:.2f} vs "
+          f"{ch[f'mean_mass@{steps}'][0]:.2f}, KS {ch['final_mass_ks']:.3f} "
+          f"(crit {crit:.3f}); virusfeed mean viruses "
+          f"{rows['virusfeed']['mean_virus_traj'][1]:.3f} vs "
+          f"{rows['virusfeed']['mean_virus_traj'][0]:.3f}; selffeed mean "
+          f"foods {rows['selffeed']['mean_food_traj'][1]:.3f} vs "
+          f"{rows['selffeed']['mean_food_traj'][0]:.3f}: tests/test_drift.py"
+          f"'s bars hold; K1 {c['k1']}x. python -m agarcl_tpu_torch.drift "
+          f"--report {path.name} --quick in {t_report:.1f} s (K1 "
+          f"{rc['k1']}x, {rc['k1_tick']} of them one-tick calls): {summ} "
+          f"| {gpu}", flush=True)
+    return {"counts": c, "report_counts": rc, "report_s": t_report}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -2351,6 +2818,17 @@ def main() -> int:
     print(f"[24-30 rim] {time.perf_counter() - t_rim:.1f} s for phases "
           f"24-30", flush=True)
 
+    # --- 31-33. the trainer and the witnesses -------------------------------
+    t_new = time.perf_counter()
+    ppo = _phase31(dev, gpu)
+    rim["ppo"] = ppo.pop("counts")
+    rim["oracle"] = _phase32(dev, gpu)["counts"]
+    drift = _phase33(dev, gpu)
+    rim["drift"], rim["drift report"] = (drift["counts"],
+                                         drift["report_counts"])
+    print(f"[31-33 trainer and witnesses] {time.perf_counter() - t_new:.1f} "
+          f"s for phases 31-33", flush=True)
+
     k1_bytes, k1_ops = _tick_work(cfg, ocfg, N, k)
     k2_bytes, k2_ops = _ram_work(cfg, ocfg, N)
     k1_bound, k2_bound = _bound_ms(k1_bytes, k1_ops), _bound_ms(k2_bytes,
@@ -2461,6 +2939,8 @@ def main() -> int:
         "sharded_ram_ms": shard["ms"], "unsharded_ram_ms": shard["vecenv_ms"],
         "bot_evaluator_env_steps_per_s": evaluator["rate"],
         "client_step_ms": client["ms"]}}))
+    print(json.dumps({"trainer": dict(ppo, drift_report_s=drift[
+        "report_s"])}))
     print(json.dumps({"kernels": kernels}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {

@@ -50,7 +50,9 @@ def test_port_runs_without_jax():
     """Importing every module of the port (the gym wrapper, tasks, io,
     GoBigger, parallel, bench, the bot evaluator and the client among
     them) and running CPU resets and steps, the gym core's, a
-    ShardedVecEnv's and a bench run too, loads no JAX."""
+    ShardedVecEnv's, a bench run, the C++ oracle, the drift harness's
+    run_ours, a PPO iteration and the random-walk driver too, loads no
+    JAX."""
     code = (
         "import sys\n"
         "import torch\n"
@@ -86,8 +88,18 @@ def test_port_runs_without_jax():
         "line = bench.main(['--device', 'cpu', '--envs', '2', '--steps', '1',"
         " '--iters', '1'])\n"
         "assert line['metric'] == 'env_steps_per_sec_per_chip_2envs_ram'\n"
+        "from agarcl_tpu_torch import drift, oracle, random_walk, train_ppo\n"
+        "oe = oracle.OracleEnv(cfg)\n"
+        "oe.reset(1)\n"
+        "oe.step([[0.5, 0.5, 0.0]])\n"
+        "drift.run_ours([1, 2], 2, policy='chase', num_pellets=20,"
+        " device='cpu')\n"
+        "train_ppo.main(['--device', 'cpu', '--envs', '2', '--iters', '1',"
+        " '--rollout', '1'])\n"
+        "random_walk.main(['--device', 'cpu', '--task', '1', '--obs', 'ram',"
+        " '--episodes', '1', '--max-steps', '1'])\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in"
-        " ('jax', 'jaxlib', 'flax', 'agarcl_tpu')]\n"
+        " ('jax', 'jaxlib', 'flax', 'agarcl_tpu', 'drift', 'examples')]\n"
         "assert not bad, bad\n"
         # R = 3 + 16*6 + 20 pellets*3 + 8 viruses*4 + 1 player*4
         "assert obs.shape == (2, 1, 1, 195), obs.shape\n"

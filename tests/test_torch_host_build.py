@@ -220,6 +220,50 @@ def test_tick_source_matches_plain_with_equal_ids(host_lib):
     assert int(planes[FT.PLANE_INDEX["food_eaten"][0]].sum()) > 0
 
 
+PILE = EnvConfig(num_agents=1, ticks_per_step=4, arena_size=110,
+                 num_pellets=80, num_viruses=4, mode=4)
+
+
+def _piles(n, seed, cells=14):
+    """tests/test_torch_engine.py::_pile: 14 cells of mass 25-300 within 6
+    of a centre (x = y = 12 in even envs, a corner, 55 in odd ones),
+    moving at up to 30 in each axis, no recombination."""
+    s = env_reset(PILE, torch.arange(n) + 3)
+    rng = np.random.default_rng(seed)
+    cm, ca, cid = s.cell_mass.clone(), s.cell_alive.clone(), s.cell_id.clone()
+    cp, cv = s.cell_pos.clone(), s.cell_vel.clone()
+    cm[:, 0, :cells] = torch.from_numpy(rng.integers(25, 300, (n, cells)))
+    ca[:, 0, :cells] = True
+    cid[:, 0, :cells] = torch.arange(1, cells + 1, dtype=torch.int32)
+    centre = torch.where(torch.arange(n) % 2 == 0, 12.0, 55.0)
+    cp[:, 0, :cells] = centre[:, None, None] + torch.from_numpy(
+        rng.uniform(-6, 6, (n, cells, 2)).astype(np.float32))
+    cv[:, 0, :cells] = torch.from_numpy(
+        rng.uniform(-30, 30, (n, cells, 2)).astype(np.float32))
+    return s.replace(
+        cell_mass=cm, cell_alive=ca, cell_id=cid, cell_pos=cp, cell_vel=cv,
+        next_cell_id=torch.full_like(s.next_cell_id, cells + 1),
+        cell_recombine_at=torch.full_like(s.cell_recombine_at, 10**6))
+
+
+def test_tick_source_matches_plain_on_crowded_piles(host_lib):
+    """Three ticks of crowded 14-cell piles (the relaxation's five passes
+    on every tick, its two elastic forms and its static and separate
+    fallbacks, cells pinned at the corner): every plane equal."""
+    n = 64
+    planes = FT.to_kernel_arrays(_piles(n, 5))
+    want = FT.engine_tick_raw_plain(PILE, [p.clone() for p in planes], 3)
+    prm = KP.env_params(PILE, RamObsConfig())
+    obs = torch.zeros((1, n, 1, prm.R))
+    info = torch.zeros((1, n, 2, 1))
+    host_lib.host_multi_step(ctypes.byref(prm), FT._ptr_array(planes), None,
+                             None, None, obs.data_ptr(), info.data_ptr(), n,
+                             1, 3)
+    names = [name for name, _, _ in FT._plane_specs(PILE)]
+    for name, a, b in zip(names, planes, want[0]):
+        assert torch.equal(a, b), name
+
+
 def _crowd(cfg, n, seed):
     """Every player's first cell within 16 of the arena centre at mass
     25-700 (so bots flee and hunt and cells eat each other), a virus

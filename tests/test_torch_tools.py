@@ -7,6 +7,7 @@ timers return sane values."""
 
 import functools
 import json
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -18,7 +19,7 @@ from agarcl_tpu import EnvConfig as JCfg
 from agarcl_tpu import env_reset as j_reset
 from agarcl_tpu import env_step as j_step
 from agarcl_tpu.client import Client as JClient
-from agarcl_tpu_torch import bench, bot_evaluator, profiling
+from agarcl_tpu_torch import bench, bot_evaluator, profiling, random_walk
 from agarcl_tpu_torch.bridge import state_to_numpy
 from agarcl_tpu_torch.client import Client as TClient
 from agarcl_tpu_torch.state import STATE_FIELDS
@@ -126,6 +127,34 @@ def test_bot_evaluator_matches_jax_vmapped_env_step(capsys):
     text = capsys.readouterr().out
     for name in ("agent (random)", "HungryBot", "AggressiveShyBot"):
         assert name in text
+
+
+def test_random_walk_matches_jax_driver(monkeypatch, capsys, tmp_path):
+    """The port's random-walk driver on the CPU (task 1, RAM, 2 episodes of
+    5 steps) prints bench/random_walk_example.py's episode lines with the
+    same rewards and steps, writes its CSV with the same rewards, and
+    saves a snapshot."""
+    from bench import random_walk_example
+    argv = ["--task", "1", "--episodes", "2", "--obs", "ram",
+            "--max-steps", "4", "--seed", "3"]
+    monkeypatch.setattr(sys, "argv", ["random_walk_example.py", *argv,
+                                      "--csv", str(tmp_path / "j.csv")])
+    random_walk_example.main()
+    want = capsys.readouterr().out.strip().splitlines()
+    rows = random_walk.main(argv + ["--device", "cpu", "--csv",
+                                    str(tmp_path / "t.csv"), "--snapshot",
+                                    str(tmp_path / "snap.json")])
+    got = capsys.readouterr().out.strip().splitlines()
+    assert [ln.rsplit(" ", 1)[0] for ln in got] == \
+        [ln.rsplit(" ", 1)[0] for ln in want]
+    assert len(got) == 2 and "steps=5" in got[0] and len(rows) == 2
+
+    def rewards(path):
+        lines = path.read_text().strip().splitlines()
+        assert lines[0] == "episode,reward,sps"
+        return [float(ln.split(",")[1]) for ln in lines[1:]]
+    assert rewards(tmp_path / "t.csv") == rewards(tmp_path / "j.csv")
+    assert (tmp_path / "snap.json").stat().st_size > 0
 
 
 def test_client_matches_jax_client(capsys):
