@@ -233,8 +233,9 @@ HD void move_cell(const EnvParams& p, const Cells& c, int i, float tx,
   const float lim = max_speed(float(c.m[i]));
   const float scale = speed > lim ? lim / fmaxf(speed, 1e-12f) : 1.0f;
   const float vx = dx * (scale * 3.0f), vy = dy * (scale * 3.0f);
-  float px = FMAF(vx + c.sx[i], p.dt, c.x[i]);
-  float py = FMAF(vy + c.sy[i], p.dt, c.y[i]);
+  // the position's fusion fuses d * (scale * 3) into vel + split_vel
+  float px = FMAF(FMAF(dx, scale * 3.0f, c.sx[i]), p.dt, c.x[i]);
+  float py = FMAF(FMAF(dy, scale * 3.0f, c.sy[i]), p.dt, c.y[i]);
   const float mag = sqrtf(norm2(c.sx[i], c.sy[i]));
   const float ddx = c.sx[i] / fmaxf(mag, 1e-12f) * p.kdec_split;
   const float ddy = c.sy[i] / fmaxf(mag, 1e-12f) * p.kdec_split;
@@ -246,11 +247,17 @@ HD void move_cell(const EnvParams& p, const Cells& c, int i, float tx,
   c.vx[i] = vx; c.vy[i] = vy;
 }
 
+// the forms of elastic_collision_between_balls XLA computes in its fusions
+enum ElasticForm { VEL_OUT, POS_OUT, DIST };
+
 // elastic_collision_between_balls (physics.py::_elastic) in the form of
-// XLA's velocity outputs (tx_first false) or of its position outputs
-// (tx_first true): the tangential products fuse on (v.y, t.y) or (v.x, t.x)
+// XLA's velocity outputs, of its position outputs or of the fallback's
+// distance: the tangential products fuse on (v.y, t.y) (VEL_OUT, DIST) or
+// (v.x, t.x) (POS_OUT); the new x component on (t.x, dp_t), or on (n.x, v)
+// (DIST)
 HD void elastic(V2& va, V2& vb, int ma, int mb, float dx, float dy,
-                float dist, bool tx_first) {
+                float dist, ElasticForm form) {
+  const bool tx_first = form == POS_OUT;
   const float d = fmaxf(dist, 1e-12f);
   const float nx = dx / d, ny = dy / d;
   const float tx = -ny, ty = nx;
@@ -264,23 +271,26 @@ HD void elastic(V2& va, V2& vb, int ma, int mb, float dx, float dy,
   const float msum = fmaxf(m1 + m2, 1.0f);
   const float v1 = FMAF(dpn1, m1 - m2, (2.0f * m2) * dpn2) / msum;
   const float v2 = FMAF(dpn2, m2 - m1, (2.0f * m1) * dpn1) / msum;
-  const V2 na = {FMAF(tx, dpt1, nx * v1), FMAF(ty, dpt1, ny * v1)};
-  const V2 nb = {FMAF(tx, dpt2, nx * v2), FMAF(ty, dpt2, ny * v2)};
+  const V2 na = {form == DIST ? FMAF(nx, v1, tx * dpt1)
+                             : FMAF(tx, dpt1, nx * v1),
+                 FMAF(ty, dpt1, ny * v1)};
+  const V2 nb = {form == DIST ? FMAF(nx, v2, tx * dpt2)
+                             : FMAF(tx, dpt2, nx * v2),
+                 FMAF(ty, dpt2, ny * v2)};
   if (ma <= mb) va = na;
   if (ma >= mb) vb = nb;
 }
 
 // avoid_static_overlap (physics.py::_avoid_static_overlap); g is the
-// pair's offset for the distance and the axis (settle)
+// pair's offset for the distance and ga its offset for the axis (settle)
 HD void avoid_static(const EnvParams& p, V2& pa, V2& va, V2& pb, V2& vb,
-                     float ra, float rb, V2 g) {
-  const float dx = g.x, dy = g.y;
-  const float dist = sqrtf(norm2(dx, dy));
+                     float ra, float rb, V2 g, V2 ga) {
+  const float dist = sqrtf(norm2(g.x, g.y));
   const float td = ra + rb;
   if (!(dist <= td)) return;
-  const float den = fmaxf(fabsf(dx) + fabsf(dy), 1e-12f);
+  const float den = fmaxf(fabsf(ga.x) + fabsf(ga.y), 1e-12f);
   const float depth = td - dist;
-  const float rdx = (dx / den) * depth, rdy = (dy / den) * depth;
+  const float rdx = (ga.x / den) * depth, rdy = (ga.y / den) * depth;
   const bool ax = pa.x == ra || pa.x == p.W - ra;
   const bool ay = pa.y == ra || pa.y == p.H - ra;
   const bool bx = pb.x == rb || pb.x == p.W - rb;
@@ -299,19 +309,21 @@ HD void avoid_static(const EnvParams& p, V2& pa, V2& va, V2& pb, V2& vb,
 
 HD void avoid_static(const EnvParams& p, V2& pa, V2& va, V2& pb, V2& vb,
                      float ra, float rb) {
-  avoid_static(p, pa, va, pb, vb, ra, rb, {pb.x - pa.x, pb.y - pa.y});
+  const V2 d = {pb.x - pa.x, pb.y - pa.y};
+  avoid_static(p, pa, va, pb, vb, ra, rb, d, d);
 }
 
 // separate_cells (physics.py::_separate_cells); g is the pair's offset
-// for the distance and the L1 ratio (settle), the signs take pb - pa
+// for the distance and ga its offset for the L1 ratio (settle), the signs
+// take pb - pa
 HD void separate(V2& pa, V2& pb, int ma, int mb, float ra, float rb,
-                 float tgx, float tgy, V2 g) {
+                 float tgx, float tgy, V2 g, V2 ga) {
   const float dx = pb.x - pa.x, dy = pb.y - pa.y;
   const float dist = sqrtf(norm2(g.x, g.y));
   const float td = ra + rb;
   if (!(dist <= td)) return;
-  const float den = fmaxf(fabsf(g.x) + fabsf(g.y), 1e-12f);
-  const float rx = g.x / den, ry = g.y / den;
+  const float den = fmaxf(fabsf(ga.x) + fabsf(ga.y), 1e-12f);
+  const float rx = ga.x / den, ry = ga.y / den;
   const float depth = td - dist;
   const float diff_a = norm2(tgx - pa.x, tgy - pa.y);
   const float diff_b = norm2(tgx - pb.x, tgy - pb.y);
@@ -326,23 +338,20 @@ HD void separate(V2& pa, V2& pb, int ma, int mb, float ra, float rb,
 
 // the end of prevent_overlap (physics.py::_settle): from the moved-back
 // positions and the new velocities, move forward, the static / separate
-// fallback, the boundary clamp. The fallback's distance and axis come from
-// the pair moved forward with gva / gvb (the velocity outputs' form).
+// fallback, the boundary clamp. The fallback's distance takes the offset
+// g, its axis the offset ga (prevent_overlap).
 HD void settle(const EnvParams& p, V2& pa, V2& va, V2 sa, int ma, V2& pb,
                V2& vb, V2 sb, int mb, float ra, float rb, float tgx,
-               float tgy, V2 gva, V2 gvb) {
-  const V2 g = {
-      FMAF(gvb.x + sb.x, p.dt, pb.x) - FMAF(gva.x + sa.x, p.dt, pa.x),
-      FMAF(gvb.y + sb.y, p.dt, pb.y) - FMAF(gva.y + sa.y, p.dt, pa.y)};
+               float tgy, V2 g, V2 ga) {
   pa = {FMAF(va.x + sa.x, p.dt, pa.x), FMAF(va.y + sa.y, p.dt, pa.y)};
   pb = {FMAF(vb.x + sb.x, p.dt, pb.x), FMAF(vb.y + sb.y, p.dt, pb.y)};
   const float rs = ra + rb;
   const bool still = rs * rs >= norm2(pb.x - pa.x, pb.y - pa.y);
   const int dm = ma - mb;
   if (still && (dm < 0 ? -dm : dm) <= 10) {
-    avoid_static(p, pa, va, pb, vb, ra, rb, g);
+    avoid_static(p, pa, va, pb, vb, ra, rb, g, ga);
   } else if (still) {
-    separate(pa, pb, ma, mb, ra, rb, tgx, tgy, g);
+    separate(pa, pb, ma, mb, ra, rb, tgx, tgy, g, ga);
   }
   pa = clamp2(p, pa, ra);
   pb = clamp2(p, pb, rb);
@@ -356,28 +365,42 @@ HD bool same_bits(V2 a, V2 b) {
 // prevent_overlap (physics.py::_prevent_overlap): the new velocities are
 // settled from the velocity outputs' elastic form, the new positions from
 // the position outputs' (XLA computes them in two fusions), with the
-// fallback's distance and axis in the velocity outputs' form for both;
-// when the two forms give the same bits, as they mostly do, one settle
-// serves both
+// fallback's distance from the pair moved forward in the distance's form
+// and its axis in the velocity outputs' form, but for b moved back and
+// forward by one rounded product where b keeps its velocity (ma < mb: the
+// axis's fusions branch on it and share that product); when the two
+// output forms give the same bits, as they mostly do, one settle serves
+// both
 HD void prevent_overlap(const EnvParams& p, V2& pa, V2& va, V2 sa, int ma,
                         V2& pb, V2& vb, V2 sb, int mb, float tgx,
                         float tgy) {
   const float ra = radius(float(ma)), rb = radius(float(mb));
   const float dx0 = pb.x - pa.x, dy0 = pb.y - pa.y;
   const float dist0 = sqrtf(norm2(dx0, dy0));
+  const V2 step_b = {(vb.x + sb.x) * p.dt, (vb.y + sb.y) * p.dt};
+  const V2 kept_b = {(pb.x - step_b.x) + step_b.x,
+                     (pb.y - step_b.y) + step_b.y};
   pa = {FMAF(-(va.x + sa.x), p.dt, pa.x), FMAF(-(va.y + sa.y), p.dt, pa.y)};
   pb = {FMAF(-(vb.x + sb.x), p.dt, pb.x), FMAF(-(vb.y + sb.y), p.dt, pb.y)};
-  V2 va_p = va, vb_p = vb;
-  elastic(va, vb, ma, mb, dx0, dy0, dist0, false);
-  elastic(va_p, vb_p, ma, mb, dx0, dy0, dist0, true);
-  const V2 gva = va, gvb = vb;
+  V2 va_p = va, vb_p = vb, va_d = va, vb_d = vb;
+  elastic(va, vb, ma, mb, dx0, dy0, dist0, VEL_OUT);
+  elastic(va_p, vb_p, ma, mb, dx0, dy0, dist0, POS_OUT);
+  elastic(va_d, vb_d, ma, mb, dx0, dy0, dist0, DIST);
+  const V2 fa = {FMAF(va.x + sa.x, p.dt, pa.x), FMAF(va.y + sa.y, p.dt, pa.y)};
+  const V2 fb = ma < mb ? kept_b
+                        : V2{FMAF(vb.x + sb.x, p.dt, pb.x),
+                             FMAF(vb.y + sb.y, p.dt, pb.y)};
+  const V2 g = {
+      FMAF(vb_d.x + sb.x, p.dt, pb.x) - FMAF(va_d.x + sa.x, p.dt, pa.x),
+      FMAF(vb_d.y + sb.y, p.dt, pb.y) - FMAF(va_d.y + sa.y, p.dt, pa.y)};
+  const V2 ga = {fb.x - fa.x, fb.y - fa.y};
   if (same_bits(va, va_p) && same_bits(vb, vb_p)) {
-    settle(p, pa, va, sa, ma, pb, vb, sb, mb, ra, rb, tgx, tgy, gva, gvb);
+    settle(p, pa, va, sa, ma, pb, vb, sb, mb, ra, rb, tgx, tgy, g, ga);
     return;
   }
   V2 qa = pa, qb = pb;
-  settle(p, qa, va, sa, ma, qb, vb, sb, mb, ra, rb, tgx, tgy, gva, gvb);
-  settle(p, pa, va_p, sa, ma, pb, vb_p, sb, mb, ra, rb, tgx, tgy, gva, gvb);
+  settle(p, qa, va, sa, ma, qb, vb, sb, mb, ra, rb, tgx, tgy, g, ga);
+  settle(p, pa, va_p, sa, ma, pb, vb_p, sb, mb, ra, rb, tgx, tgy, g, ga);
 }
 
 HD int lowest_bit(uint32_t m) {

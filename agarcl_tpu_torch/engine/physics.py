@@ -33,14 +33,15 @@ def move_cells(target, pos, split_vel, mass, alive, arena_w, arena_h, dt):
     decelerates by 80/s; boundary clamp. target (N,P,2); pos (N,P,Cc,2).
 
     Returns (pos, vel, split_vel)."""
-    # XLA reassociates (3*d)*scale into d*(scale*3); the kernel mirrors it
+    # XLA reassociates (3*d)*scale into d*(scale*3), and the position's
+    # fusion fuses that product into vel + split_vel; the kernel mirrors it
     d = target[..., None, :] - pos
     speed = G.vec_norm(3.0 * d, keepdim=True)
     lim = G.max_speed(mass)[..., None]
     scale = torch.where(speed > lim, lim / torch.clamp(speed, min=1e-12),
                         torch.ones_like(speed))
     vel = d * (scale * 3.0)
-    pos = fma32(vel + split_vel, dt, pos)
+    pos = fma32(fma32(d, scale * 3.0, split_vel), dt, pos)
     split_vel = G.decelerate(split_vel, C.SPLIT_DECELERATION, dt)
     pos = G.boundary_clamp(pos, G.radius(mass), arena_w, arena_h)
     keep = alive[..., None]
@@ -73,8 +74,9 @@ def _mutual_match(touch, rank):
 def _elastic(vel_a, vel_b, mass_a, mass_b, dxy, dist):
     """elastic_collision_between_balls: updates the velocity of the
     smaller-mass cell only (both when equal). Returns the new (vel_a,
-    vel_b) twice: in the form of XLA's velocity outputs, then in that of
-    its position outputs (`_prevent_overlap`)."""
+    vel_b) three times: in the form of XLA's velocity outputs, in that of
+    its position outputs and in that of the fallback's distance
+    (`_prevent_overlap`)."""
     n = dxy / torch.clamp(dist, min=1e-12)[..., None]
     nx, ny = n[..., 0], n[..., 1]
     tx, ty = -ny, nx
@@ -91,17 +93,20 @@ def _elastic(vel_a, vel_b, mass_a, mass_b, dxy, dist):
     v1 = fma32(dp_n1, m1 - m2, (2.0 * m2) * dp_n2) / msum
     v2 = fma32(dp_n2, m2 - m1, (2.0 * m1) * dp_n1) / msum
     out = []
-    for tx_first in (False, True):
+    # the distance's fusion fuses the x component on (n.x, v) instead
+    for tx_first, nx_first in ((False, False), (True, False), (False, True)):
         if tx_first:
             dp_t1 = fma32(vel_a[..., 0], tx, vel_a[..., 1] * ty)
             dp_t2 = fma32(vel_b[..., 0], tx, vel_b[..., 1] * ty)
         else:
             dp_t1 = fma32(vel_a[..., 1], ty, vel_a[..., 0] * tx)
             dp_t2 = fma32(vel_b[..., 1], ty, vel_b[..., 0] * tx)
-        new_a = torch.stack([fma32(tx, dp_t1, nx * v1),
-                             fma32(ty, dp_t1, ny * v1)], dim=-1)
-        new_b = torch.stack([fma32(tx, dp_t2, nx * v2),
-                             fma32(ty, dp_t2, ny * v2)], dim=-1)
+        if nx_first:
+            xa, xb = fma32(nx, v1, tx * dp_t1), fma32(nx, v2, tx * dp_t2)
+        else:
+            xa, xb = fma32(tx, dp_t1, nx * v1), fma32(tx, dp_t2, nx * v2)
+        new_a = torch.stack([xa, fma32(ty, dp_t1, ny * v1)], dim=-1)
+        new_b = torch.stack([xb, fma32(ty, dp_t2, ny * v2)], dim=-1)
         out.append((_w((mass_a <= mass_b)[..., None], new_a, vel_a),
                     _w((mass_a >= mass_b)[..., None], new_b, vel_b)))
     return out
@@ -114,18 +119,18 @@ def _l1_ratio(dxy):
 
 
 def _avoid_static_overlap(pos_a, vel_a, pos_b, vel_b, rad_a, rad_b,
-                          arena_w, arena_h, dxy_g=None):
+                          arena_w, arena_h, geo=None):
     """avoid_static_overlap: push the pair apart along the L1-normalized
     axis by the overlap depth; a cell pinned at a border moves the full
     depth and zeroes that velocity component (exact float equality).
-    `dxy_g` (default pos_b - pos_a) is the pair's offset for the distance
-    and the axis (`_settle`)."""
-    if dxy_g is None:
-        dxy_g = pos_b - pos_a
-    dist = G.vec_norm(dxy_g)
+    `geo` (default pos_b - pos_a twice) is the pair's offset for the
+    distance and its offset for the axis (`_settle`)."""
+    if geo is None:
+        geo = (pos_b - pos_a,) * 2
+    dist = G.vec_norm(geo[0])
     target_dist = rad_a + rad_b
     overlapping = dist <= target_dist
-    rd = _l1_ratio(dxy_g) * (target_dist - dist)[..., None]
+    rd = _l1_ratio(geo[1]) * (target_dist - dist)[..., None]
 
     def border_scale(pos, rad, vel):
         at_lo = pos == torch.stack([rad, rad], dim=-1)
@@ -146,16 +151,16 @@ def _avoid_static_overlap(pos_a, vel_a, pos_b, vel_b, rad_a, rad_b,
 
 
 def _separate_cells(pos_a, pos_b, mass_a, mass_b, rad_a, rad_b, target,
-                    dxy_g):
+                    geo):
     """separate_cells: moves only the smaller cell by the full depth, its
-    direction decided by the mass / target-distance sign votes. `dxy_g` is
-    the pair's offset for the distance and the L1 ratio (`_settle`); the
-    direction signs take pos_b - pos_a."""
+    direction decided by the mass / target-distance sign votes. `geo` is
+    the pair's offset for the distance and its offset for the L1 ratio
+    (`_settle`); the direction signs take pos_b - pos_a."""
     dxy = pos_b - pos_a
-    dist = G.vec_norm(dxy_g)
+    dist = G.vec_norm(geo[0])
     target_dist = rad_a + rad_b
     overlapping = dist <= target_dist
-    ratio = _l1_ratio(dxy_g)
+    ratio = _l1_ratio(geo[1])
     depth = target_dist - dist
     da = target - pos_a
     db = target - pos_b
@@ -176,14 +181,11 @@ def _separate_cells(pos_a, pos_b, mass_a, mass_b, rad_a, rad_b, target,
 
 
 def _settle(pos_a, vel_a, svel_a, mass_a, pos_b, vel_b, svel_b, mass_b,
-            rad_a, rad_b, target, arena_w, arena_h, dt, geo_vel):
+            rad_a, rad_b, target, arena_w, arena_h, dt, geo):
     """The end of prevent_overlap from the moved-back positions and the new
     velocities: move both forward one dt, the static/separate fallback if
     still touching, the boundary clamp. The fallback's distance and L1 axis
-    come from the pair moved forward with geo_vel = (vel_a, vel_b) of the
-    velocity outputs' form (`_prevent_overlap`)."""
-    dxy_g = (fma32(geo_vel[1] + svel_b, dt, pos_b)
-             - fma32(geo_vel[0] + svel_a, dt, pos_a))
+    take the offsets `geo` (`_prevent_overlap`)."""
     pos_a = fma32(vel_a + svel_a, dt, pos_a)
     pos_b = fma32(vel_b + svel_b, dt, pos_b)
     d1 = pos_b - pos_a
@@ -192,9 +194,9 @@ def _settle(pos_a, vel_a, svel_a, mass_a, pos_b, vel_b, svel_b, mass_b,
     near_mass = (mass_a - mass_b).abs() <= 10
 
     sa_pa, sa_va, sa_pb, sa_vb = _avoid_static_overlap(
-        pos_a, vel_a, pos_b, vel_b, rad_a, rad_b, arena_w, arena_h, dxy_g)
+        pos_a, vel_a, pos_b, vel_b, rad_a, rad_b, arena_w, arena_h, geo)
     sc_pa, sc_pb = _separate_cells(pos_a, pos_b, mass_a, mass_b, rad_a,
-                                   rad_b, target, dxy_g)
+                                   rad_b, target, geo)
     use_static = (still & near_mass)[..., None]
     use_sep = (still & ~near_mass)[..., None]
     pos_a = _w(use_static, sa_pa, _w(use_sep, sc_pa, pos_a))
@@ -212,19 +214,31 @@ def _prevent_overlap(pos_a, vel_a, svel_a, mass_a, pos_b, vel_b, svel_b,
     from the pre-move-back positions), then `_settle`. XLA-CPU computes the
     new velocities and the new positions in two fusions, each with its own
     form of the elastic velocities (`_elastic`), so each output is settled
-    from its own; but the fallback's distance and L1 axis are computed in
-    fusions that see the negation of n.y, in the velocity outputs' form,
-    for both outputs."""
+    from its own. The fallback's distance and L1 axis are computed in
+    fusions of their own, for both outputs: the distance from the pair
+    moved forward in the distance's elastic form, the axis in the velocity
+    outputs' form, with b moved back and forward unfused where it keeps
+    its velocity."""
     rad_a, rad_b = G.radius(mass_a), G.radius(mass_b)
     dxy0 = pos_b - pos_a
     dist0 = G.vec_norm(dxy0)
     back_a = fma32(-(vel_a + svel_a), dt, pos_a)
     back_b = fma32(-(vel_b + svel_b), dt, pos_b)
-    (va_v, vb_v), (va_p, vb_p) = _elastic(vel_a, vel_b, mass_a, mass_b,
-                                          dxy0, dist0)
+    (va_v, vb_v), (va_p, vb_p), (va_d, vb_d) = _elastic(
+        vel_a, vel_b, mass_a, mass_b, dxy0, dist0)
+    fwd_a = fma32(va_v + svel_a, dt, back_a)
+    fwd_b = fma32(vb_v + svel_b, dt, back_b)
+    # the L1 axis's fusions branch on whether b's velocity changes; where
+    # it does not (mass_a < mass_b), LLVM shares the product
+    # (vel_b + svel_b) * dt between b's move back and forward, and neither
+    # is fused
+    q_b = (vel_b + svel_b) * torch.tensor(dt, dtype=torch.float32)
+    fwd_b_axis = _w((mass_a < mass_b)[..., None], (pos_b - q_b) + q_b, fwd_b)
+    geo = (fma32(vb_d + svel_b, dt, back_b)
+           - fma32(va_d + svel_a, dt, back_a), fwd_b_axis - fwd_a)
     pos_a, vel_a, pos_b, vel_b = _settle(
         back_a, va_v, svel_a, mass_a, back_b, vb_v, svel_b, mass_b, rad_a,
-        rad_b, target, arena_w, arena_h, dt, (va_v, vb_v))
+        rad_b, target, arena_w, arena_h, dt, geo)
     # the pairs whose two forms differ in a bit (few) settle their
     # positions again from the position outputs' form
     differ = ((va_p != va_v) | (vb_p != vb_v)).any(-1)
@@ -236,7 +250,7 @@ def _prevent_overlap(pos_a, vel_a, svel_a, mass_a, pos_b, vel_b, svel_b,
         pa, _, pb, _ = _settle(*(pick(x) for x in (
             back_a, va_p, svel_a, mass_a, back_b, vb_p, svel_b, mass_b,
             rad_a, rad_b, target)), arena_w, arena_h, dt,
-            (pick(va_v), pick(vb_v)))
+            tuple(pick(g) for g in geo))
         pos_a = pos_a.clone()
         pos_b = pos_b.clone()
         pos_a[idx] = pa

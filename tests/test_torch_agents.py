@@ -101,8 +101,7 @@ def test_vecenv_frames_of_every_agent_match_xla_vecenv():
         ts, to, tr, td = env.multi_step(ts, acts, 2)
         assert tuple(to.shape[:4]) == (2, N, 1, 2)
         np.testing.assert_array_equal(to.numpy(), jo)
-        np.testing.assert_allclose(tr.numpy(), np.stack(jr), atol=1e-5,
-                                   rtol=0)
+        np.testing.assert_array_equal(tr.numpy(), np.stack(jr))
         np.testing.assert_array_equal(td.numpy(), np.stack(jd))
         assert not np.array_equal(jo[:, :, 0, 0], jo[:, :, 0, 1])
     t = state_to_numpy(ts)

@@ -1,12 +1,12 @@
 """The port's plain engine (env_reset, engine_tick) against the JAX package.
 
-Integers are held exact, f32 state to atol 2e-3 (the JAX suite's own bar,
+Every field is held bit-equal (the JAX suite's own bar is 2e-3,
 tests/test_fused_tick.py:30-38). The eventful scenario (virus pops,
 splits, feeds with up to 12 cells in a pile) free-runs for 40 ticks and is
 compared tick by tick from the same JAX state over 40, and crowded corner
-piles free-run for 12 ticks: the relaxation of a crowded pile amplifies any
-one-ulp difference from XLA-CPU's fused arithmetic, so these runs hold the
-relaxation's pinned forms (ROADMAP.md, Queue 3 item 1).
+piles free-run for 12 ticks: a crowded pile amplifies any one-ulp
+difference from XLA-CPU's fused arithmetic, so these runs hold the
+movement's and the relaxation's pinned forms (ROADMAP.md, Queue 3).
 """
 
 import functools
@@ -51,12 +51,9 @@ def _fields(js):
 def compare(js, ts, t):
     jd = _fields(js)
     td = state_to_numpy(ts)
-    for f in INT_FIELDS:
+    for f in INT_FIELDS + F32_FIELDS:
         np.testing.assert_array_equal(td[f], jd[f],
                                       err_msg=f"{f} at tick {t}")
-    for f in F32_FIELDS:
-        np.testing.assert_allclose(td[f], jd[f], atol=2e-3, rtol=0,
-                                   err_msg=f"{f} at tick {t}")
 
 
 def _steer(rng, js):
@@ -243,13 +240,15 @@ def test_engine_tick_corner_pile_free_run():
 
 def test_relaxation_bitwise_share_ceiling():
     """Crowded piles of 14 cells (half at a corner), each tick from the
-    same JAX state: the share of live cells whose velocity is not
-    bit-equal to jax.jit(jax.vmap(engine_tick))'s. The relaxation's fused
-    products, read off the vmapped tick (v2's first product; the
-    tangential products per output fusion), took it from 65 to 5 of 2688,
-    and the fallback's distance and L1 axis in the velocity outputs' form
-    for the position outputs too from 5 to 4; the rest is not pinned
-    (ROADMAP.md, Queue 3), and this ceiling keeps it from growing."""
+    same JAX state: every live cell's velocity and position bit-equal to
+    jax.jit(jax.vmap(engine_tick))'s, 2688 of 2688. The relaxation's
+    fused products, read off the vmapped tick's fusions, took the count of
+    differing velocities from 65 to 0: v2's first product and the
+    tangential products per output fusion (65 -> 5), the fallback's
+    geometry from the velocity outputs' form (5 -> 4), then the
+    distance's own form of the new x component and the L1 axis's
+    unshared-product move of a cell that keeps its velocity (4 -> 0;
+    ROADMAP.md, Queue 3)."""
     NE = 64
     kw = dict(num_agents=1, ticks_per_step=4, arena_size=110,
               num_pellets=80, num_viruses=4, mode=4)
@@ -267,12 +266,13 @@ def test_relaxation_bitwise_share_ceiling():
         ts = t_tick(cfg_t, state_from_numpy(_fields(js)))
         js = tick(js)
         alive = np.asarray(js.cell_alive)
-        ours = state_to_numpy(ts)["cell_vel"]
-        diff += int(((ours != np.asarray(js.cell_vel)).any(-1)
-                     & alive).sum())
+        ours = state_to_numpy(ts)
+        for f in ("cell_vel", "cell_pos"):
+            diff += int(((ours[f] != np.asarray(getattr(js, f))).any(-1)
+                         & alive).sum())
         total += int(alive.sum())
     assert total == 2688
-    assert diff <= 4, f"{diff} of {total} velocities differ (ceiling 4)"
+    assert diff == 0, f"{diff} of {total} velocities and positions differ"
 
 
 def _pop_pile(js):

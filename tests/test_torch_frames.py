@@ -2,11 +2,10 @@
 
 - The plain F-frame step (VecEnv(backend="torch"), env.py::env_step) against
   the JAX VecEnv's vmapped env_step: the screen at F = 2 and the grid at
-  F = 4, frames exact, rewards within 1e-5, dones equal; F = 6 > the
-  4 ticks of a step pads two zero frames in front, as the XLA env_step.
+  F = 4, frames, rewards and dones bit-equal; F = 6 > the 4 ticks of a
+  step pads two zero frames in front, as the XLA env_step.
 - `engine_tick_raw_plain` (K1's partial-step mode, plain version) against a
-  jitted lax.scan of the JAX engine_tick: integer fields exact, f32 within
-  the 2e-3 bar of tests/test_torch_engine.py.
+  jitted lax.scan of the JAX engine_tick: every field bit-equal.
 - The kernel path's chain (ops/fused_step.py::_framed_step: K1 with the
   actions and ticks_per_step - F + 1 ticks, then F - 1 one-tick calls) run
   on CPU tensors, where every wrapper takes its plain version, against the
@@ -80,7 +79,7 @@ def test_plain_frames_match_xla_vec_env(kind, F):
         assert tuple(to.shape) == np.asarray(jo).shape
         assert to.shape[1] == F
         np.testing.assert_array_equal(to.numpy(), np.asarray(jo))
-        np.testing.assert_allclose(tr.numpy(), np.asarray(jr), atol=1e-5)
+        np.testing.assert_array_equal(tr.numpy(), np.asarray(jr))
         np.testing.assert_array_equal(td.numpy(), np.asarray(jd))
     if F > KW["ticks_per_step"]:
         assert not to[:, :F - KW["ticks_per_step"]].any()
@@ -125,12 +124,9 @@ def test_engine_tick_raw_plain_matches_jax_scan(n_ticks, with_actions):
         actions=torch.from_numpy(_acts(2)) if with_actions else None)
     assert obs is None and tuple(info.shape) == (N, 2, 1)
     got = state_to_numpy(FT.from_kernel_arrays(ts, planes))
-    for f in INT_FIELDS:
+    for f in INT_FIELDS + F32_FIELDS:
         np.testing.assert_array_equal(got[f], np.asarray(getattr(want, f)),
                                       err_msg=f)
-    for f in F32_FIELDS:
-        np.testing.assert_allclose(got[f], np.asarray(getattr(want, f)),
-                                   atol=2e-3, rtol=0, err_msg=f)
     np.testing.assert_array_equal(info[:, 0, 0].numpy(),
                                   got["cell_mass"].sum((1, 2)))
 

@@ -95,8 +95,8 @@ def test_player_states_rim():
 
 def test_vec_env_gobigger_matches_xla():
     """VecEnv(obs_type="gobigger") on the plain engine against the XLA
-    VecEnv: reset frame and 2 steps (frames bit-equal, rewards within 1e-5,
-    dones equal)."""
+    VecEnv: reset frame and 2 steps (frames, rewards and dones
+    bit-equal)."""
     kw = SOLO
     rng = np.random.default_rng(4)
     acts = np.concatenate([rng.uniform(-1, 1, (N, 1, 2)),
@@ -114,5 +114,5 @@ def test_vec_env_gobigger_matches_xla():
         for k in jo:
             np.testing.assert_array_equal(to[k].numpy(), np.asarray(jo[k]),
                                           k)
-        np.testing.assert_allclose(tr.numpy(), np.asarray(jr), atol=1e-5)
+        np.testing.assert_array_equal(tr.numpy(), np.asarray(jr))
         np.testing.assert_array_equal(td.numpy(), np.asarray(jd))

@@ -21,12 +21,12 @@ from agarcl_tpu.obs import grid as JG
 from agarcl_tpu.ops import fused_grid as JFG
 from agarcl_tpu.vec import VecEnv as JVec
 from agarcl_tpu_torch import EnvConfig as TCfg
-from agarcl_tpu_torch.bridge import state_from_numpy, state_to_numpy
+from agarcl_tpu_torch.bridge import state_from_numpy
 from agarcl_tpu_torch.obs import grid as TG
 from agarcl_tpu_torch.ops import fused_grid as TFG
 from agarcl_tpu_torch.ops.fused_tick import to_kernel_arrays
-from agarcl_tpu_torch.state import STATE_FIELDS
 from agarcl_tpu_torch.vec import VecEnv as TVec
+from test_torch_vec import assert_same_state, xla_step_chain
 
 SOLO = dict(num_agents=1, ticks_per_step=2, arena_size=120, num_pellets=80,
             num_viruses=4, num_bots=0, mode=4)
@@ -276,33 +276,14 @@ def test_grid_frame_arithmetic_matches_xla_on_crafted_boundaries():
     assert (np.where(inb, 0, -1) != want).any()
 
 
-def _same_game_envs(js, ts):
-    """(N,) bool: envs whose integer state is equal; the f32 state of every
-    env must be within 2e-3 (the port's state tolerance,
-    tests/test_torch_vec.py)."""
-    t = state_to_numpy(ts)
-    ok = np.ones(N, bool)
-    for f in STATE_FIELDS:
-        j = np.asarray(getattr(js, f))
-        if np.issubdtype(j.dtype, np.floating):
-            np.testing.assert_allclose(t[f], j, atol=2e-3, rtol=0,
-                                       err_msg=f)
-        else:
-            ok &= (t[f] == j).reshape(N, -1).all(1)
-    return ok
-
-
 def _compare(j_out, t_out, js, ts):
     (jo, jr, jd), (to, tr, td) = j_out, t_out
-    np.testing.assert_allclose(tr.numpy(), np.asarray(jr), atol=1e-5,
-                               rtol=0)
+    np.testing.assert_array_equal(tr.numpy(), np.asarray(jr))
     np.testing.assert_array_equal(td.numpy(), np.asarray(jd))
-    same = _same_game_envs(js, ts)
-    assert same.sum() >= N - 1, same
+    assert_same_state(js, ts)
     jo, to = np.asarray(jo), to.numpy()
     assert to.shape == jo.shape and to.dtype == jo.dtype
-    np.testing.assert_array_equal(to[..., same, :, :, :, :, :],
-                                  jo[..., same, :, :, :, :, :])
+    np.testing.assert_array_equal(to, jo)
 
 
 ACTS = np.tile(np.asarray([[0.6, -0.4, 2.0]], np.float32), (N, 1, 1))
@@ -324,8 +305,8 @@ def test_vecenv_grid_matches_xla_vecenv():
     ts, tobs = tenv.reset(4)
     np.testing.assert_array_equal(tobs.numpy(), np.asarray(jobs))
     assert tuple(tobs.shape) == (N, 1, 8, 16, 16)
-    _same_game_envs(js, ts)
-    js, *jo = jenv.multi_step(js, jnp.asarray(ACTS), 2)
+    assert_same_state(js, ts)
+    js, *jo = xla_step_chain(jenv, js, ACTS, 2)
     ts, *to = tenv.multi_step(ts, ACTS, 2)
     assert tuple(to[0].shape) == (2, N, 1, 1, 8, 16, 16)
     _compare(jo, to, js, ts)
@@ -344,7 +325,7 @@ def test_vecenv_grid_auto_reset_matches_xla():
         cell_id=js.cell_id.at[:2, 0, 1].set(9),
         cell_pos=js.cell_pos.at[:2, 0, 1].add(jnp.asarray([30.0, 0.0])))
     ts = _to_port(js)
-    js, *jo = jenv.multi_step(js, jnp.asarray(ACTS), 2)
+    js, *jo = xla_step_chain(jenv, js, ACTS, 2)
     ts, o, r, d = tenv.multi_step(ts, ACTS, 2, stack_obs=False)
     assert isinstance(o, tuple) and len(o) == 2
     _compare(jo, (torch.stack(o), r, d), js, ts)

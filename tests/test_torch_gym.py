@@ -3,11 +3,10 @@ agarcl_tpu_torch.gym_env.AgarioEnv(device="cpu") (the plain engine under
 the gymnasium-free core, gym_core.AgarioCore) against
 agarcl_tpu.gym_env.AgarioEnv over 5 steps of the same actions, for the ram
 (mode 0 with a bot), grid (num_frames 2), screen (num_frames 2, agent view,
-the duel of mode 10) and gobigger observations: RAM within rtol 1e-5 /
-atol 1e-4, frames and GoBigger tables exact, rewards within 1e-5, dones
-equal. Then the task suite (tasks.py) against bench/tasks_configs and the
-JAX package's, the gymnasium ids of the port's namespace, and the core's
-refusals."""
+the duel of mode 10) and gobigger observations: RAM frames, frames,
+GoBigger tables, rewards and dones bit-equal. Then the task suite
+(tasks.py) against bench/tasks_configs and the JAX package's, the
+gymnasium ids of the port's namespace, and the core's refusals."""
 
 import json
 from pathlib import Path
@@ -37,8 +36,6 @@ TASKS = Path(__file__).resolve().parent.parent / "bench" / "tasks_configs"
 def _same_obs(kind, got, want):
     if kind == "gobigger":
         assert repr(got) == repr(want)
-    elif kind == "ram":
-        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-4)
     else:
         assert got.shape == want.shape and got.dtype == want.dtype
         np.testing.assert_array_equal(got, want)
@@ -61,7 +58,7 @@ def test_agario_env_matches_jax(kind):
         jo, jr, jd, jt, ji = jenv.step(act)
         to, tr, td, tt, ti = tenv.step(act)
         _same_obs(kind, to, jo)
-        assert abs(tr - jr) <= 1e-5 and td == jd and tt == jt
+        assert tr == jr and td == jd and tt == jt
         assert ti["steps"] == ji["steps"]
     if kind == "gobigger":
         assert vars(tenv.global_state) == vars(jenv.global_state)

@@ -140,7 +140,7 @@ def _assert_same_steps(lib, cfg, state, acts, k):
     for name, a, b in zip(names, got, want):
         assert torch.equal(a, b), name
     assert torch.equal(ginfo, winfo)
-    assert torch.allclose(gobs, wobs, rtol=1e-5, atol=1e-4)
+    assert torch.equal(gobs, wobs)
     return got
 
 
@@ -169,8 +169,7 @@ def test_tick_source_partial_step_matches_plain(host_lib, cfg, n_ticks,
     """K1's partial-step mode (fused_engine_tick's counterpart): null
     action planes skip the action phase, n_ticks ticks run, then the RAM
     frames and info rows; equal to engine_tick_raw_plain on the eventful
-    state after two steps (planes and info exact, RAM frames to rtol 1e-5 /
-    atol 1e-4)."""
+    state after two steps (planes, info and RAM frames bit-equal)."""
     A = cfg.num_agents
     s = _eventful(N) if cfg is CFG else env_reset(cfg, reset_seeds(N, 4))
     acts = _acts(N, 3, A)
@@ -191,7 +190,7 @@ def test_tick_source_partial_step_matches_plain(host_lib, cfg, n_ticks,
     for name, a, b in zip(names, planes, want[0]):
         assert torch.equal(a, b), name
     assert torch.equal(info[0], want[2])
-    assert torch.allclose(obs[0], want[1], rtol=1e-5, atol=1e-4)
+    assert torch.equal(obs[0], want[1])
 
 
 def test_tick_source_matches_plain_on_eventful_steps(host_lib):
@@ -259,6 +258,32 @@ def test_tick_source_matches_plain_on_crowded_piles(host_lib):
     host_lib.host_multi_step(ctypes.byref(prm), FT._ptr_array(planes), None,
                              None, None, obs.data_ptr(), info.data_ptr(), n,
                              1, 3)
+    names = [name for name, _, _ in FT._plane_specs(PILE)]
+    for name, a, b in zip(names, planes, want[0]):
+        assert torch.equal(a, b), name
+
+
+def test_tick_source_matches_plain_on_split_piles(host_lib):
+    """Two ticks of 512 crowded piles whose cells also carry split
+    velocities and chase a far target at their speed limit: the movement's
+    fused split velocity and the relaxation fallback's distance and L1
+    axis forms (ROADMAP.md Queue 3 item 1) each flip some of these cells;
+    every plane equal."""
+    n = 512
+    s = _piles(n, 7)
+    rng = np.random.default_rng(8)
+    sv = s.cell_split_vel.clone()
+    sv[:, 0] = torch.from_numpy(
+        rng.uniform(-80, 80, sv[:, 0].shape).astype(np.float32))
+    s = s.replace(cell_split_vel=sv, target=torch.full_like(s.target, 90.0))
+    planes = FT.to_kernel_arrays(s)
+    want = FT.engine_tick_raw_plain(PILE, [p.clone() for p in planes], 2)
+    prm = KP.env_params(PILE, RamObsConfig())
+    obs = torch.zeros((1, n, 1, prm.R))
+    info = torch.zeros((1, n, 2, 1))
+    host_lib.host_multi_step(ctypes.byref(prm), FT._ptr_array(planes), None,
+                             None, None, obs.data_ptr(), info.data_ptr(), n,
+                             1, 2)
     names = [name for name, _, _ in FT._plane_specs(PILE)]
     for name, a, b in zip(names, planes, want[0]):
         assert torch.equal(a, b), name

@@ -36,6 +36,13 @@ def cuda_device():
     return torch.device("cuda")
 
 
+def _assert_same_state(a, b):
+    """Every field of two GameStates bit-equal."""
+    for f in STATE_FIELDS:
+        torch.testing.assert_close(getattr(a, f), getattr(b, f), rtol=0,
+                                   atol=0, msg=f)
+
+
 def _planes(n=4, cfg=CFG):
     return FT.to_kernel_arrays(env_reset(cfg, reset_seeds(n, 0)))
 
@@ -205,17 +212,11 @@ def test_grid_wrapper_cpu_planes_run_the_plain_version(no_build):
 
 
 def _assert_same_steps(got, want):
-    """(states, obs, rewards, dones) of two step runs: integer state equal,
-    f32 state within 2e-3, frames equal, rewards within 1e-5, dones
-    equal."""
+    """(states, obs, rewards, dones) of two step runs, bit-equal."""
     (gs, go, gr, gd), (ws, wo, wr, wd) = got, want
-    assert int(_int_mismatch(gs, ws).sum()) == 0
-    for f in STATE_FIELDS:
-        x, y = getattr(gs, f), getattr(ws, f)
-        if x.dtype.is_floating_point:
-            torch.testing.assert_close(x, y, rtol=0, atol=2e-3, msg=f)
+    _assert_same_state(gs, ws)
     assert go.shape == wo.shape and torch.equal(go, wo)
-    torch.testing.assert_close(gr, wr, rtol=0, atol=1e-5)
+    torch.testing.assert_close(gr, wr, rtol=0, atol=0)
     assert torch.equal(gd, wd)
 
 
@@ -369,15 +370,6 @@ def _two_player_state(s):
     return duel, z.replace(cell_pos=cp, cell_mass=cm, cell_alive=ca, **world)
 
 
-def _int_mismatch(a, b):
-    bad = torch.zeros(a.num_envs, dtype=torch.bool, device=a.device)
-    for f in STATE_FIELDS:
-        x, y = getattr(a, f), getattr(b, f)
-        if not x.dtype.is_floating_point:
-            bad |= (x != y).reshape(a.num_envs, -1).any(1)
-    return bad
-
-
 @pytest.mark.gpu
 def test_ram_frame_kernel_matches_plain(cuda_device):
     s = _eventful_state(512, cuda_device)
@@ -385,7 +377,7 @@ def test_ram_frame_kernel_matches_plain(cuda_device):
     got = fused_obs.fused_ram_obs(CFG, RamObsConfig(), FT.to_kernel_arrays(s))
     assert fused_obs.launches == before + 1
     torch.testing.assert_close(got, ram_frame(CFG, RamObsConfig(), s),
-                               rtol=1e-5, atol=1e-4)
+                               rtol=0, atol=0)
 
 
 @pytest.mark.gpu
@@ -405,10 +397,10 @@ def test_multi_step_kernel_matches_plain(cuda_device):
     assert FT.launches == before + 1
     sk, sp = fused_step.from_resident(CFG, rk), fused_step.from_resident(CFG,
                                                                           rp)
-    assert int(_int_mismatch(sk, sp).sum()) == 0
+    _assert_same_state(sk, sp)
     assert int(sk.viruses_eaten.sum()) > 0
-    torch.testing.assert_close(ok, op, rtol=1e-5, atol=1e-4)
-    torch.testing.assert_close(rwk, rwp, rtol=0, atol=1e-5)
+    torch.testing.assert_close(ok, op, rtol=0, atol=0)
+    torch.testing.assert_close(rwk, rwp, rtol=0, atol=0)
     assert torch.equal(dk, dp)
 
 
@@ -473,12 +465,8 @@ def test_multi_step_kernel_matches_plain_with_equal_ids(cuda_device):
     assert FT.launches == before + 1
     sk, sp = (fused_step.from_resident(CFG3, rk),
               fused_step.from_resident(CFG3, rp))
-    assert int(_int_mismatch(sk, sp).sum()) == 0
-    for f in STATE_FIELDS:
-        x, y = getattr(sk, f), getattr(sp, f)
-        if x.dtype.is_floating_point:
-            torch.testing.assert_close(x, y, rtol=0, atol=2e-3, msg=f)
-    torch.testing.assert_close(rwk, rwp, rtol=0, atol=1e-5)
+    _assert_same_state(sk, sp)
+    torch.testing.assert_close(rwk, rwp, rtol=0, atol=0)
     assert int(sk.food_eaten.sum()) > 0
 
 
@@ -571,9 +559,9 @@ def _ram_step_composition_matches_plain(dev, n):
         s, *out = fused_step.fused_env_step(cfg, s, acts, RamObsConfig())
         outs.append(out)
     got = (s, *(torch.stack(x) for x in zip(*outs)))
-    assert int(_int_mismatch(got[0], want[0]).sum()) == 0
-    torch.testing.assert_close(got[1], want[1], rtol=1e-5, atol=1e-4)
-    torch.testing.assert_close(got[2], want[2], rtol=0, atol=1e-5)
+    _assert_same_state(got[0], want[0])
+    torch.testing.assert_close(got[1], want[1], rtol=0, atol=0)
+    torch.testing.assert_close(got[2], want[2], rtol=0, atol=0)
     assert torch.equal(got[3], want[3])
     assert int(want[0].cells_eaten.sum()) >= n
     assert bool(want[0].player_alive().all())            # respawned
@@ -594,12 +582,12 @@ def test_ram_step_composition_on_the_card_matches_plain(cuda_device):
 @pytest.mark.parametrize("name", list(ROSTERS))
 def test_multi_step_kernel_matches_plain_with_bots(cuda_device, name):
     """K1 on crowded rosters (bot decisions, cross-player eating, contested
-    pellets and viruses) against the plain engine: every integer field
-    equal after one step; after four at most 1% of envs diverge."""
+    pellets and viruses) against the plain engine after one step and
+    after four: RAM frames, rewards, dones and integer state bit-equal."""
     cfg, n = ROSTERS[name], 512
     s = _crowd_state(cfg, n, cuda_device)
     acts = _roster_acts(cfg, n, cuda_device)
-    for k, allowed in ((1, 0), (4, n // 100)):
+    for k in (1, 4):
         before = FT.launches
         rk, ok, rwk, dk = fused_step.multi_step_resident(
             cfg, fused_step.to_resident(cfg, s), acts, k, RamObsConfig())
@@ -609,14 +597,10 @@ def test_multi_step_kernel_matches_plain_with_bots(cuda_device, name):
         assert FT.launches == before + 1
         sk, sp = (fused_step.from_resident(cfg, rk),
                   fused_step.from_resident(cfg, rp))
-        bad = _int_mismatch(sk, sp)
-        assert int(bad.sum()) <= allowed
-        keep = ~bad
-        torch.testing.assert_close(ok[:, keep], op[:, keep], rtol=1e-5,
-                                   atol=1e-4)
-        torch.testing.assert_close(rwk[:, keep], rwp[:, keep], rtol=0,
-                                   atol=1e-5)
-        assert torch.equal(dk[:, keep], dp[:, keep])
+        _assert_same_state(sk, sp)
+        torch.testing.assert_close(ok, op, rtol=0, atol=0)
+        torch.testing.assert_close(rwk, rwp, rtol=0, atol=0)
+        assert torch.equal(dk, dp)
     assert int(sp.cells_eaten.sum()) > 0
 
 
@@ -695,8 +679,8 @@ def test_engine_tick_wrapper_validates_before_building(no_build):
 def test_partial_step_kernel_matches_plain(cuda_device, n_ticks,
                                            with_actions, players):
     """K1 in partial-step mode (null action planes or actions, n ticks)
-    against engine_tick_raw_plain: integers exact, f32 within 2e-3, RAM
-    frames within rtol 1e-5 / atol 1e-4, info rows exact."""
+    against engine_tick_raw_plain: state, RAM frames and info rows
+    bit-equal."""
     cfg = {1: CFG, 2: ROSTERS["mode7"], 9: ROSTERS["P9"]}[players]
     n = 512
     s = (_eventful_state(n, cuda_device) if players == 1
@@ -710,11 +694,8 @@ def test_partial_step_kernel_matches_plain(cuda_device, n_ticks,
     assert FT.tick_launches == before + 1
     sk = FT.from_kernel_arrays(s, pk)
     sp = FT.from_kernel_arrays(s, pp)
-    assert int(_int_mismatch(sk, sp).sum()) == 0
-    for f in ("cell_pos", "cell_vel", "food_pos", "virus_pos", "target"):
-        torch.testing.assert_close(getattr(sk, f), getattr(sp, f), rtol=0,
-                                   atol=2e-3)
-    torch.testing.assert_close(ok, op, rtol=1e-5, atol=1e-4)
+    _assert_same_state(sk, sp)
+    torch.testing.assert_close(ok, op, rtol=0, atol=0)
     assert torch.equal(ik, ip)
 
 
@@ -722,9 +703,9 @@ def test_partial_step_kernel_matches_plain(cuda_device, n_ticks,
 @pytest.mark.parametrize("kind", ["screen", "grid"])
 def test_multi_frame_paths_on_the_card_match_plain(cuda_device, kind):
     """num_frames = 4 (every tick of a 4-tick step framed) through K1's
-    partial-step mode and K3 / K4, against the torch backend: frames
-    exact, rewards within 1e-5, dones equal; K1 and the frame kernel 4
-    launches a step."""
+    partial-step mode and K3 / K4, against the torch backend: frames,
+    rewards and dones bit-equal; K1 and the frame kernel 4 launches a
+    step."""
     n = 512
     ocfg = (ScreenObsConfig(128, agent_view=True, num_frames=4)
             if kind == "screen"
@@ -743,5 +724,5 @@ def test_multi_frame_paths_on_the_card_match_plain(cuda_device, kind):
     want = plain.multi_step(s, acts, 2)
     assert got[1].shape == want[1].shape == (2, n, 4, 1) + got[1].shape[4:]
     assert int((got[1] != want[1]).sum()) == 0
-    torch.testing.assert_close(got[2], want[2], rtol=0, atol=1e-5)
+    torch.testing.assert_close(got[2], want[2], rtol=0, atol=0)
     assert torch.equal(got[3], want[3])

@@ -5,11 +5,10 @@ players, and VecEnv on duel and mode-0 rosters.
 
 References are jitted XLA functions of the JAX package; the XLA tick is
 what the JAX suite holds its Pallas kernel to
-(tests/test_fused_tick.py:464-560), with the same settings and
-tolerances: integer fields exact, f32 fields and targets within 2e-3.
-engine_tick is compared tick by tick from the same JAX state, so the
-chaotic one-ulp drift of the relaxation (ROADMAP Queue 3) does not
-compound. Bot targets are held bit-equal."""
+(tests/test_fused_tick.py:464-560, integer fields exact, f32 fields within
+2e-3), with the same settings. The port is held bit for bit: engine_tick
+tick by tick from the same JAX state, VecEnv against the XLA VecEnv's step
+chain (test_torch_vec.py::xla_step_chain), bot targets."""
 
 import functools
 
@@ -39,6 +38,7 @@ from agarcl_tpu_torch.ops import fused_step as TFS
 from agarcl_tpu_torch.ops import fused_tick as TFT
 from agarcl_tpu_torch.state import STATE_FIELDS, decode_pellet_xy
 from agarcl_tpu_torch.vec import VecEnv as TVec
+from test_torch_vec import assert_same_state, xla_step_chain
 
 # The suite runs in several worker processes (pytest-xdist); one intra-op
 # thread per process keeps torch's thread pools from oversubscribing the
@@ -47,12 +47,6 @@ from agarcl_tpu_torch.vec import VecEnv as TVec
 # setting holds for all of the port's tests in such a run.
 torch.set_num_threads(1)
 
-INT_FIELDS = tuple(f for f in STATE_FIELDS if f not in (
-    "target", "anti_team_decay", "cell_pos", "cell_vel", "cell_split_vel",
-    "virus_pos", "virus_vel", "food_pos", "food_vel"))
-F32_FIELDS = ("target", "anti_team_decay", "cell_pos", "cell_vel",
-              "cell_split_vel", "virus_pos", "virus_vel", "food_pos",
-              "food_vel")
 ROSTERS = {      # tests/test_fused_tick.py:464-519
     "duel10": dict(num_agents=1, ticks_per_step=4, arena_size=100,
                    num_pellets=40, num_viruses=2, num_bots=1, mode=10),
@@ -76,12 +70,9 @@ def _to_port(js):
 
 def _compare(js, ts, what):
     t = state_to_numpy(ts)
-    for f in INT_FIELDS:
+    for f in STATE_FIELDS:
         np.testing.assert_array_equal(t[f], np.asarray(getattr(js, f)),
                                       err_msg=f"{f} {what}")
-    for f in F32_FIELDS:
-        np.testing.assert_allclose(t[f], np.asarray(getattr(js, f)),
-                                   atol=2e-3, rtol=0, err_msg=f"{f} {what}")
 
 
 @functools.lru_cache(maxsize=None)
@@ -197,8 +188,8 @@ def test_bot_decide_bit_equal_to_jax(seed):
     assert not tu[5, 3] and tu[5, 1]                        # dead bot
     assert (t[4, 1] == np.floor(t[4, 1])).all()             # random floor
     assert (t[3, 1] == 0.0).all()                           # the (0,0) quirk
-    np.testing.assert_allclose(t[0, 2], 2 * fields["cell_pos"][0, 2, 0]
-                               - fields["cell_pos"][0, 0, 0], atol=1e-4)
+    np.testing.assert_array_equal(t[0, 2], 2 * fields["cell_pos"][0, 2, 0]
+                                  - fields["cell_pos"][0, 0, 0])
     assert not np.allclose(t[1, 3], t[1, 4])                # two hunters
 
 
@@ -340,18 +331,6 @@ def test_engine_tick_contested_virus_matches_xla():
 
 
 # -------------------------------------------------------------- VecEnv
-def _same(js, ts, n):
-    t = state_to_numpy(ts)
-    ok = np.ones(n, bool)
-    for f in STATE_FIELDS:
-        j = np.asarray(getattr(js, f))
-        if np.issubdtype(j.dtype, np.floating):
-            np.testing.assert_allclose(t[f], j, atol=2e-3, rtol=0, err_msg=f)
-        else:
-            ok &= (t[f] == j).reshape(n, -1).all(1)
-    return ok
-
-
 def _acts(n, a, seed):
     rng = np.random.default_rng(seed)
     return np.concatenate([rng.uniform(-1, 1, (n, a, 2)),
@@ -365,7 +344,7 @@ DUEL_SMALL = dict(num_agents=1, ticks_per_step=2, arena_size=60,
 
 def test_vecenv_duel_screen_matches_xla():
     """A small duel on the screen path: the bot is drawn (G 255) and the
-    frames, rewards and dones equal the XLA VecEnv's."""
+    state, frames, rewards and dones equal the XLA VecEnv's step chain."""
     n, S = 4, 32
     jenv = JVec(JCfg(**DUEL_SMALL), n, obs_type="screen", donate=False,
                 obs_config=JS.ScreenObsConfig(S, agent_view=True))
@@ -375,20 +354,20 @@ def test_vecenv_duel_screen_matches_xla():
     ts, to = tenv.reset(3)
     np.testing.assert_array_equal(to.numpy(), np.asarray(jo))
     acts = _acts(n, 1, 0)
-    js, jo, jr, jd = jenv.multi_step(js, jnp.asarray(acts), 3)
+    js, jo, jr, jd = xla_step_chain(jenv, js, acts, 3)
     ts, to, tr, td = tenv.multi_step(ts, acts, 3)
-    np.testing.assert_allclose(tr.numpy(), np.asarray(jr), atol=1e-5, rtol=0)
-    np.testing.assert_array_equal(td.numpy(), np.asarray(jd))
-    same = _same(js, ts, n)
-    assert same.sum() >= n - 1
-    np.testing.assert_array_equal(to.numpy()[:, same], np.asarray(jo)[:, same])
+    np.testing.assert_array_equal(tr.numpy(), jr)
+    np.testing.assert_array_equal(td.numpy(), jd)
+    assert_same_state(js, ts)
+    np.testing.assert_array_equal(to.numpy(), jo)
     assert (to.numpy()[..., 1] == 255).any()                 # the bot drawn
 
 
 def test_vecenv_duel_ram_resident_matches_xla():
     """The duel's RAM path on resident state from a forced cross-eat: the
     agent eats the bot in the first step, so done_on_death fires; frames
-    (with the bot's per-player row), rewards and dones as the XLA VecEnv."""
+    (with the bot's per-player row), rewards, dones and state as the XLA
+    VecEnv's step chain."""
     n = 4
     kw = dict(DUEL_SMALL, ticks_per_step=4, num_viruses=0, arena_size=100)
     jenv = JVec(JCfg(**kw), n, obs_type="ram", donate=False)
@@ -401,16 +380,14 @@ def test_vecenv_duel_ram_resident_matches_xla():
     res = tenv.make_resident(_to_port(js))
     acts = _acts(n, 1, 1)
     for k in (2, 1):
-        js, jo, jr, jd = jenv.multi_step(js, jnp.asarray(acts), k)
+        js, jo, jr, jd = xla_step_chain(jenv, js, acts, k)
         res, to, tr, td = tenv.multi_step(res, acts, k)
-        np.testing.assert_allclose(to.numpy(), np.asarray(jo), rtol=1e-5,
-                                   atol=1e-4)
-        np.testing.assert_allclose(tr.numpy(), np.asarray(jr), atol=1e-5,
-                                   rtol=0)
-        np.testing.assert_array_equal(td.numpy(), np.asarray(jd))
+        np.testing.assert_array_equal(to.numpy(), jo)
+        np.testing.assert_array_equal(tr.numpy(), jr)
+        np.testing.assert_array_equal(td.numpy(), jd)
     assert td.numpy()[-1, :2, 0].all()                      # bot eaten
     assert (to.numpy()[0, 2:, 0, 0, -4:] != 0).any()        # bot row
-    _same(js, tenv.materialize(res), n)
+    assert_same_state(js, tenv.materialize(res))
 
 
 def test_vecenv_mode0_respawn_with_bots_matches_xla():
@@ -424,13 +401,12 @@ def test_vecenv_mode0_respawn_with_bots_matches_xla():
     js = _boost_cross_eat(js)
     ts = _to_port(js)
     acts = _acts(n, 1, 2)
-    js, jo, jr, jd = jenv.multi_step(js, jnp.asarray(acts), 2)
+    js, jo, jr, jd = xla_step_chain(jenv, js, acts, 2)
     ts, to, tr, td = tenv.multi_step(ts, acts, 2)
-    np.testing.assert_allclose(to.numpy(), np.asarray(jo), rtol=1e-5,
-                               atol=1e-4)
-    np.testing.assert_allclose(tr.numpy(), np.asarray(jr), atol=1e-5, rtol=0)
-    np.testing.assert_array_equal(td.numpy(), np.asarray(jd))
-    assert _same(js, ts, n).all()
+    np.testing.assert_array_equal(to.numpy(), jo)
+    np.testing.assert_array_equal(tr.numpy(), jr)
+    np.testing.assert_array_equal(td.numpy(), jd)
+    assert_same_state(js, ts)
     assert int(ts.cells_eaten.sum()) >= n
     assert ts.player_alive().all() and int(ts.next_cell_id.min()) > 6
 

@@ -5,9 +5,9 @@ Two rasterizers, each held against its own JAX counterpart:
 - the GameState route, obs/screen.py::_class_map(polygon_edges=True) with
   the polar radius factor, against the float64 fan oracle of
   tests/test_polygon_screen.py (the sandwich at eps = 1e-3, both virus
-  modes) and against the XLA class map, with the JAX suite's own bar: a
-  differing share below 2e-3 (the port takes the factor in float64, XLA in
-  f32);
+  modes) and against the XLA class map, pixel for pixel (the JAX suite's
+  own bar is a differing share below 2e-3: the port takes the factor in
+  float64, XLA in f32; ROADMAP.md Queue 3 item 9);
 - the kernel form, ops/fused_screen.py::rasterize_plain(poly=True) (the
   plain version of K3's poly mode, half-plane row intervals), against the
   Pallas kernel with poly=True in interpret mode, pixel for pixel, on
@@ -15,8 +15,8 @@ Two rasterizers, each held against its own JAX counterpart:
   pixel centres (they pin XLA's arithmetic forms).
 VecEnv(backend="torch") on polygon configurations runs the kernel form
 (polygon_virus="circle", held to the Pallas kernel) or the GameState route
-(the wavy rim, held to the JAX VecEnv's frame function at the same 2e-3
-bar)."""
+(the wavy rim, held to the JAX VecEnv's frame function pixel for
+pixel)."""
 
 import functools
 
@@ -46,7 +46,6 @@ from agarcl_tpu_torch.vec import VecEnv as TVec
 F32 = np.float32
 DUEL = dict(num_agents=1, ticks_per_step=4, arena_size=120, num_pellets=64,
             num_viruses=4, num_bots=1, mode=7)
-BAR = 2e-3            # tests/test_polygon_screen.py, polar vs half-plane
 
 
 def _to_port(js):
@@ -131,8 +130,8 @@ def test_class_map_vs_fan_oracle(virus):
 def test_screen_frame_matches_xla_screen_frame(virus):
     """The port's polygon screen_frame (the GameState route, counted in
     class_map_calls) on played duel states against
-    jax.jit(jax.vmap(screen_frame)) of the same states: differing share
-    below 2e-3 (0 pixels differ here)."""
+    jax.jit(jax.vmap(screen_frame)) of the same states, pixel for
+    pixel."""
     js = _played()
     S = 48
     flags = dict(agent_view=True, polygon_edges=True, polygon_virus=virus)
@@ -142,9 +141,7 @@ def test_screen_frame_matches_xla_screen_frame(virus):
     got = TS.screen_frame(TCfg(**DUEL), TS.ScreenObsConfig(S, **flags),
                           _to_port(js)).numpy()
     assert TS.class_map_calls == before + 1
-    diff = (got != want).any(-1)
-    assert diff.mean() < BAR, int(diff.sum())
-    assert int(diff.sum()) == 0
+    np.testing.assert_array_equal(got, want)
     colours = {tuple(c) for c in want.reshape(-1, 4).tolist()}
     assert {(255, 0, 0, 0), (0, 0, 0, 230), (0, 255, 0, 0),
             (0, 0, 255, 0)} <= colours
@@ -336,7 +333,7 @@ def test_vecenv_wavy_route_matches_xla_screen_frame():
     route (obs/screen.py::screen_frame, counted in class_map_calls; no
     kernel-form call): its frames of the last step against
     jax.jit(jax.vmap(screen_frame)) of the same states, the JAX VecEnv's
-    frame function, within the 2e-3 differing share."""
+    frame function, pixel for pixel."""
     n, S = 4, 32
     tenv = _polygon_env("wavy", n, S)
     assert TFstep.frame_kernel(tenv.ocfg)[0] is TFS.class_map_frame
@@ -351,8 +348,7 @@ def test_vecenv_wavy_route_matches_xla_screen_frame():
         JS.screen_frame, JCfg(**DUEL), JS.ScreenObsConfig(
             S, agent_view=True, polygon_edges=True))))(
         JState(**jax.tree.map(jnp.asarray, state_to_numpy(ts)))))
-    diff = (to[-1, :, 0].numpy() != want).any(-1)
-    assert diff.mean() < BAR, int(diff.sum())
+    np.testing.assert_array_equal(to[-1, :, 0].numpy(), want)
     assert (want[..., 2] == 255).any()                  # viruses drawn
     np.testing.assert_array_equal(
         TFS.class_map_frame(TCfg(**DUEL), tenv.ocfg,

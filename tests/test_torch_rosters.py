@@ -8,8 +8,7 @@ backend's refusals, which name the limit and the torch backend.
 
 References are jitted XLA functions of the JAX package, from states the
 JAX reset builds or the port's engine hands over as numpy (bridge.py);
-integer fields exact, f32 fields within 2e-3
-(tests/test_torch_multiplayer.py:84), frames value for value."""
+every field and frame value bit-equal."""
 
 import functools
 
@@ -69,14 +68,13 @@ def _kw(d):
 @functools.lru_cache(maxsize=None)
 def _ticked12():
     """The 12-player roster (mode 0, 11 bots: types 1-4 then HungryBots)
-    after 6 ticks of the port's engine_tick, each tick held against the
-    jitted JAX engine_tick from the same state; returns the port's last
-    state and the largest f32 difference seen."""
+    after 6 ticks of the port's engine_tick, each tick held bit for bit
+    against the jitted JAX engine_tick from the same state; returns the
+    port's last state."""
     cfg = TCfg(**ROSTER12)
     js = _jit(j_reset, _kw(ROSTER12))(jnp.arange(N, dtype=jnp.uint32) + 3)
     tick = _jit(j_tick, _kw(ROSTER12))
     rng = np.random.default_rng(3)
-    err = 0.0
     for t in range(6):
         c = np.asarray(js.player_centroid())
         tgt = np.array(js.target)
@@ -88,18 +86,13 @@ def _ticked12():
         js = tick(js)
         got = state_to_numpy(ts)
         for f in STATE_FIELDS:
-            want = np.asarray(getattr(js, f))
-            if np.issubdtype(want.dtype, np.floating):
-                err = max(err, float(np.abs(got[f] - want).max()))
-            else:
-                np.testing.assert_array_equal(got[f], want,
-                                              err_msg=f"{f} tick {t}")
-    return ts, err
+            np.testing.assert_array_equal(got[f], np.asarray(getattr(js, f)),
+                                          err_msg=f"{f} tick {t}")
+    return ts
 
 
 def test_engine_tick_twelve_players_matches_xla():
-    ts, err = _ticked12()
-    assert err <= 2e-3, err
+    ts = _ticked12()
     cfg = TCfg(**ROSTER12)
     assert cfg.num_players == 12 and not TFT.supports(cfg)
     assert cfg.bot_types() == (0, 1, 2, 3, 4) + (1,) * 7
@@ -112,7 +105,7 @@ def test_twelve_player_frames_match_xla(kind):
     """The torch backend's frames of the 12-player state (K3's and K4's
     plain versions on the planes, the route VecEnv takes) against the
     JAX package's class map and grid_frame: 0 differing values."""
-    ts, _ = _ticked12()
+    ts = _ticked12()
     cfg, js = TCfg(**ROSTER12), _to_jax(ts)
     planes = to_kernel_arrays(ts)
     if kind == "screen":

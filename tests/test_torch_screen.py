@@ -25,8 +25,8 @@ from agarcl_tpu_torch.bridge import state_from_numpy, state_to_numpy
 from agarcl_tpu_torch.obs import screen as TS
 from agarcl_tpu_torch.ops import fused_screen as TFS
 from agarcl_tpu_torch.ops.fused_tick import to_kernel_arrays
-from agarcl_tpu_torch.state import STATE_FIELDS
 from agarcl_tpu_torch.vec import VecEnv as TVec
+from test_torch_vec import assert_same_state, xla_step_chain
 
 SOLO = dict(num_agents=1, ticks_per_step=2, arena_size=120, num_pellets=80,
             num_viruses=4, num_bots=0, mode=4)
@@ -410,34 +410,14 @@ def test_screen_frame_matches_xla_on_oracle_scenarios():
         functools.partial(JS.render_rgb, JCfg(**kw), size=32))(js)))
 
 
-def _same_game_envs(js, ts):
-    """(N,) bool: envs whose integer state is equal; the f32 state of every
-    env must be within 2e-3 (the port's state tolerance: positions can
-    differ by an ulp, tests/test_torch_vec.py)."""
-    t = state_to_numpy(ts)
-    ok = np.ones(N, bool)
-    for f in STATE_FIELDS:
-        j = np.asarray(getattr(js, f))
-        if np.issubdtype(j.dtype, np.floating):
-            np.testing.assert_allclose(t[f], j, atol=2e-3, rtol=0,
-                                       err_msg=f)
-        else:
-            ok &= (t[f] == j).reshape(N, -1).all(1)
-    return ok
-
-
 def _compare(j_out, t_out, js, ts):
     (jo, jr, jd), (to, tr, td) = j_out, t_out
-    np.testing.assert_allclose(tr.numpy(), np.asarray(jr), atol=1e-5,
-                               rtol=0)
+    np.testing.assert_array_equal(tr.numpy(), np.asarray(jr))
     np.testing.assert_array_equal(td.numpy(), np.asarray(jd))
-    same = _same_game_envs(js, ts)
-    assert same.sum() >= N - 1, same
-    jo = np.asarray(jo)
-    to = to.numpy()
+    assert_same_state(js, ts)
+    jo, to = np.asarray(jo), to.numpy()
     assert to.shape == jo.shape and to.dtype == jo.dtype == np.uint8
-    np.testing.assert_array_equal(to[..., same, :, :, :, :, :],
-                                  jo[..., same, :, :, :, :, :])
+    np.testing.assert_array_equal(to, jo)
 
 
 def _envs(kw, S, av=True, **flags):
@@ -461,12 +441,12 @@ def test_vecenv_screen_matches_xla_vecenv():
     ts, *to = tenv.step(ts, ACTS)
     assert tuple(to[0].shape) == (N, 1, 1, 32, 32, 4)
     _compare(jo, to, js, ts)
-    js, *jo = jenv.multi_step(js, jnp.asarray(ACTS), 2)
+    js, *jo = xla_step_chain(jenv, js, ACTS, 2)
     ts, *to = tenv.multi_step(ts, ACTS, 2)
     assert tuple(to[0].shape) == (2, N, 1, 1, 32, 32, 4)
     _compare(jo, to, js, ts)
     ts, o, r, d = tenv.multi_step(ts, ACTS, 2, stack_obs=False)
-    js, *jo = jenv.multi_step(js, jnp.asarray(ACTS), 2)
+    js, *jo = xla_step_chain(jenv, js, ACTS, 2)
     assert isinstance(o, tuple) and len(o) == 2
     _compare(jo, (torch.stack(o), r, d), js, ts)
 

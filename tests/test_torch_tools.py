@@ -175,12 +175,9 @@ def test_client_matches_jax_client(capsys):
         np.testing.assert_array_equal(tf, jf)
         got = state_to_numpy(tc.state)
         for f in STATE_FIELDS:
-            want = np.asarray(getattr(jc.state, f))
-            if np.issubdtype(want.dtype, np.floating):
-                np.testing.assert_allclose(got[f][0], want, atol=2e-3,
-                                           rtol=0, err_msg=f)
-            else:
-                np.testing.assert_array_equal(got[f][0], want, err_msg=f)
+            np.testing.assert_array_equal(got[f][0],
+                                          np.asarray(getattr(jc.state, f)),
+                                          err_msg=f)
         assert tc.leaderboard() == jc.leaderboard()
     assert tf.shape == (64, 64, 3) and len(np.unique(tf.reshape(-1, 3),
                                                      axis=0)) > 3
