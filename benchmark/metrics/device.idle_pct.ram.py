@@ -1,0 +1,4 @@
+"""The device's idle share, in the RAM cells
+(benchmark/readers.py::device_idle_pct)."""
+
+from benchmark.readers import device_idle_pct as read  # noqa: F401

@@ -1,0 +1,4 @@
+"""K1's share of its roofline, in the screen cells
+(benchmark/readers.py::k1_roofline_pct)."""
+
+from benchmark.readers import k1_roofline_pct as read  # noqa: F401

@@ -1,0 +1,1 @@
+"""Part of the benchmark's frozen reference; see the package docstring."""
