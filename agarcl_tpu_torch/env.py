@@ -18,12 +18,18 @@ from agarcl_tpu_torch.config import EnvConfig
 from agarcl_tpu_torch.engine import geometry as G
 from agarcl_tpu_torch.engine import spawn as S
 from agarcl_tpu_torch.engine.tick import engine_tick
+from agarcl_tpu_torch.profiling import span
 from agarcl_tpu_torch.state import GameState, zero_state
 
 
 def env_reset(cfg: EnvConfig, seeds: torch.Tensor) -> GameState:
     """Fresh games, one per seed ((N,) ints in [0, 2^32)): world init and
     one 25-mass (or agent_mass) cell per player."""
+    with span("reset.engine"):
+        return _reset(cfg, seeds)
+
+
+def _reset(cfg: EnvConfig, seeds: torch.Tensor) -> GameState:
     seeds = torch.as_tensor(seeds).to(torch.int64) & 0xFFFFFFFF
     dev = seeds.device
     N = seeds.shape[0]

@@ -28,6 +28,7 @@ from agarcl_tpu_torch.obs.gobigger import GoBiggerObsConfig, to_player_states
 from agarcl_tpu_torch.obs.grid import GridObsConfig
 from agarcl_tpu_torch.obs.ram import RamObsConfig, ram_size
 from agarcl_tpu_torch.obs.screen import ScreenObsConfig, render_rgb
+from agarcl_tpu_torch.profiling import span
 from agarcl_tpu_torch.vec import VecEnv
 
 DIFFICULTY = {
@@ -136,7 +137,8 @@ class AgarioCore:
             gs, players = to_player_states(self.cfg, self.obs_config, last)
             self.global_state = gs
             return [players[a] for a in range(self.num_agents)]
-        obs = frames.detach().cpu().numpy()
+        with span("gym.fetch"):
+            obs = frames.detach().cpu().numpy()
         out = []
         for a in range(self.num_agents):
             o = obs[:, a]
@@ -154,43 +156,51 @@ class AgarioCore:
 
     # ------------------------------------------------------------ episodes
     def reset(self, seed=None, **kwargs):
-        if seed is not None:
-            self._seed = seed
-        self.steps = 0
-        self.state = env_reset(self.cfg, torch.tensor(
-            [self._seed & 0xFFFFFFFF], dtype=torch.int64, device=self.device))
-        frame = self.venv.observe(self.state)
-        if isinstance(frame, dict):
-            frames = {k: v[0][None] for k, v in frame.items()}
-        else:
-            frames = frame[0][None].expand((self.num_frames,)
-                                           + frame.shape[1:])
-        return self._out(self._post_obs(frames)), {}
+        with span("gym.reset"):
+            if seed is not None:
+                self._seed = seed
+            self.steps = 0
+            self.state = env_reset(self.cfg, torch.tensor(
+                [self._seed & 0xFFFFFFFF], dtype=torch.int64,
+                device=self.device))
+            frame = self.venv.observe(self.state)
+            if isinstance(frame, dict):
+                frames = {k: v[0][None] for k, v in frame.items()}
+            else:
+                frames = frame[0][None].expand((self.num_frames,)
+                                               + frame.shape[1:])
+            return self._out(self._post_obs(frames)), {}
 
     def step(self, actions):
         if self.steps is None:
             raise RuntimeError("Cannot call step() before calling reset()")
-        acts = self._sanitize_actions(actions)
-        self.state, obs, rewards, dones = self.venv.step(self.state,
-                                                         acts[None])
-        frames = ({k: v[0] for k, v in obs.items()} if isinstance(obs, dict)
-                  else obs[0])
-        observations = self._post_obs(frames)
-        if self.video_recorder_enabled and isinstance(observations[0],
-                                                      np.ndarray):
-            self.video_recorder.append(
-                self._make_video_observation(observations[0]))
-        rewards = [float(r) for r in rewards[0].cpu().numpy()]
-        dones = [bool(d) for d in dones[0].cpu().numpy()]
-        truncations = [False] * len(dones)
-        if self.steps >= self.number_of_steps and self.env_type == 0:
-            dones = [True] * len(dones)
-        if not self.multi_agent:
-            observations, rewards = observations[0], rewards[0]
-            dones, truncations = dones[0], truncations[0]
-        self.steps += 1
-        return observations, rewards, dones, truncations, \
-            {"steps": self.steps, "untransformed_rewards": rewards}
+        with span("gym.step"):
+            with span("gym.actions"):
+                acts = self._sanitize_actions(actions)
+            self.state, obs, rewards, dones = self.venv.step(self.state,
+                                                             acts[None])
+            frames = ({k: v[0] for k, v in obs.items()}
+                      if isinstance(obs, dict) else obs[0])
+            observations = self._post_obs(frames)
+            if self.video_recorder_enabled and isinstance(observations[0],
+                                                          np.ndarray):
+                self.video_recorder.append(
+                    self._make_video_observation(observations[0]))
+            with span("gym.fetch"):
+                rewards = rewards[0].cpu().numpy()
+            with span("gym.fetch"):
+                dones = dones[0].cpu().numpy()
+            rewards = [float(r) for r in rewards]
+            dones = [bool(d) for d in dones]
+            truncations = [False] * len(dones)
+            if self.steps >= self.number_of_steps and self.env_type == 0:
+                dones = [True] * len(dones)
+            if not self.multi_agent:
+                observations, rewards = observations[0], rewards[0]
+                dones, truncations = dones[0], truncations[0]
+            self.steps += 1
+            return observations, rewards, dones, truncations, \
+                {"steps": self.steps, "untransformed_rewards": rewards}
 
     def seed(self, seed=None):
         if seed is not None:

@@ -49,6 +49,7 @@ import torch
 
 from agarcl_tpu_torch.config import EnvConfig
 from agarcl_tpu_torch.engine.geometry import fma32, radius
+from agarcl_tpu_torch.profiling import register_counters
 from agarcl_tpu_torch.state import GameState
 
 _TAN_HALF_FOV = math.tan(math.radians(45.0 / 2.0))
@@ -68,6 +69,7 @@ _VIRUS_RIM = tuple(1.0 + math.sin(30.0 * math.pi * i / SIDES_VIRUS) / 15.0
 _ENV_CHUNK = 128      # envs per pass of a polygon class map (memory)
 
 class_map_calls = 0   # screen_frame calls (the GameState route)
+register_counters(__name__, "screen", ("class_map_calls",))
 
 
 @dataclasses.dataclass(frozen=True)

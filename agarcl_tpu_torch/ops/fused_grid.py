@@ -38,10 +38,12 @@ from agarcl_tpu_torch.ops import _build
 from agarcl_tpu_torch.ops import params as KP
 from agarcl_tpu_torch.ops.fused_tick import (PLANE_INDEX, _ptr_array,
                                              check_planes)
+from agarcl_tpu_torch.profiling import register_counters, span
 from agarcl_tpu_torch.state import decode_pellet_xy
 
 launches = 0          # K4 launches
 plain_calls = 0       # frame_plain calls
+register_counters(__name__, "fused_grid", ("launches", "plain_calls"))
 MAX_GRID = 238        # K4 keeps a G x G int32 histogram in shared memory
 _ELEM = {torch.int32: 4, torch.int16: 2, torch.int8: 1}
 _CHUNK = 1024         # envs per pass of the plain rasterizer (memory)
@@ -208,13 +210,16 @@ def fused_grid_frame(cfg: EnvConfig, ocfg: GridObsConfig, planes,
         _check_out(out, shape, dtype, dev)
     if dev.type == "cpu":
         return frame_plain(cfg, ocfg, planes, out)
-    if out is None:
-        out = torch.empty(shape, dtype=dtype, device=dev)
-    lib = _build.load()
-    prm, q = launch_params(cfg, ocfg)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    status = lib.agarcl_grid(ctypes.byref(prm), ctypes.byref(q),
-                             _ptr_array(planes), out.data_ptr(), N, stream)
-    _build.check(lib, status, "grid kernel")
-    launches += 1
-    return out
+    with span("k4.launch") as sp:
+        if out is None:
+            out = torch.empty(shape, dtype=dtype, device=dev)
+        lib = _build.load()
+        prm, q = launch_params(cfg, ocfg)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        args = (ctypes.byref(prm), ctypes.byref(q), _ptr_array(planes),
+                out.data_ptr(), N, stream)
+        with sp.device(dev):
+            status = lib.agarcl_grid(*args)
+        _build.check(lib, status, "grid kernel")
+        launches += 1
+        return out

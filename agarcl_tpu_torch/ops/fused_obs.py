@@ -24,10 +24,12 @@ from agarcl_tpu_torch.ops import _build
 from agarcl_tpu_torch.ops import params as KP
 from agarcl_tpu_torch.ops.fused_tick import (_ptr_array, check_planes,
                                              from_kernel_arrays)
+from agarcl_tpu_torch.profiling import register_counters, span
 from agarcl_tpu_torch.state import zero_state
 
 launches = 0          # K2 launches
 plain_calls = 0       # plain ram_frame calls made by fused_ram_obs
+register_counters(__name__, "fused_obs", ("launches", "plain_calls"))
 
 
 def supports(cfg: EnvConfig) -> bool:
@@ -50,13 +52,16 @@ def fused_ram_obs(cfg: EnvConfig, ocfg: RamObsConfig, planes) -> torch.Tensor:
         plain_calls += 1
         state = from_kernel_arrays(zero_state(cfg, N, dev), planes)
         return ram_frame(cfg, ocfg, state)
-    out = torch.empty((N, cfg.num_agents, ram_size(cfg, ocfg)),
-                      dtype=torch.float32, device=dev)
-    lib = _build.load()
-    prm = KP.env_params(cfg, ocfg)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    status = lib.agarcl_ram_frame(ctypes.byref(prm), _ptr_array(planes),
-                                  out.data_ptr(), N, stream)
-    _build.check(lib, status, "RAM-frame kernel")
-    launches += 1
-    return out
+    with span("k2.launch") as sp:
+        out = torch.empty((N, cfg.num_agents, ram_size(cfg, ocfg)),
+                          dtype=torch.float32, device=dev)
+        lib = _build.load()
+        prm = KP.env_params(cfg, ocfg)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        args = (ctypes.byref(prm), _ptr_array(planes), out.data_ptr(), N,
+                stream)
+        with sp.device(dev):
+            status = lib.agarcl_ram_frame(*args)
+        _build.check(lib, status, "RAM-frame kernel")
+        launches += 1
+        return out

@@ -72,11 +72,13 @@ from agarcl_tpu_torch.ops import params as KP
 from agarcl_tpu_torch.ops.fused_tick import (PLANE_INDEX, _ptr_array,
                                              check_planes,
                                              from_kernel_arrays)
+from agarcl_tpu_torch.profiling import register_counters, span
 from agarcl_tpu_torch.state import (decode_pellet_xy, frame_centroid,
                                     zero_state)
 
 launches = 0          # K3 launches
 plain_calls = 0       # frame_plain calls
+register_counters(__name__, "fused_screen", ("launches", "plain_calls"))
 _F32 = np.float32
 _PARK = 1e9           # coordinate of a dead lane (fused_tick.py _DEAD)
 MAX_SCREEN = 544      # K3's bit planes and entity list fit a block
@@ -504,13 +506,17 @@ def fused_screen_frame(cfg: EnvConfig, ocfg: ScreenObsConfig, planes,
         _check_out(out, N, A, S, ch, dev)
     if dev.type == "cpu":
         return frame_plain(cfg, ocfg, planes, out)
-    if out is None:
-        out = torch.empty((N, A, S, S, ch), dtype=torch.uint8, device=dev)
-    lib = _build.load()
-    prm, q = launch_params(cfg, ocfg)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    status = lib.agarcl_screen(ctypes.byref(prm), ctypes.byref(q),
-                               _ptr_array(planes), out.data_ptr(), N, stream)
-    _build.check(lib, status, "screen kernel")
-    launches += 1
-    return out
+    with span("k3.launch") as sp:
+        if out is None:
+            out = torch.empty((N, A, S, S, ch), dtype=torch.uint8,
+                              device=dev)
+        lib = _build.load()
+        prm, q = launch_params(cfg, ocfg)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        args = (ctypes.byref(prm), ctypes.byref(q), _ptr_array(planes),
+                out.data_ptr(), N, stream)
+        with sp.device(dev):
+            status = lib.agarcl_screen(*args)
+        _build.check(lib, status, "screen kernel")
+        launches += 1
+        return out

@@ -38,6 +38,7 @@ from agarcl_tpu_torch.obs.screen import ScreenObsConfig
 from agarcl_tpu_torch.ops import fused_grid as FG
 from agarcl_tpu_torch.ops import fused_screen as FS
 from agarcl_tpu_torch.ops import fused_tick as FT
+from agarcl_tpu_torch.profiling import span
 from agarcl_tpu_torch.state import GameState, zero_state
 
 
@@ -174,20 +175,21 @@ def multi_step_resident(cfg: EnvConfig, resident: ResidentState, actions,
         step = FT.multi_step_raw_plain if plain else FT.multi_step_raw
         raw, obs, info = step(cfg, resident.raw, actions, k, ocfg)
         obs = obs[:, :, None] if obs is not None else None
-    mass_a = info[:, :, 0, :A]                               # (k, N, A)
-    step_alive = info[:, :, 1, :] > 0.0                      # (k, N, P)
-    dones = resident.dones[None].expand(k, -1, -1).clone()
-    if ms.done_on_death:
-        dones[:, :, 0] = (~step_alive).any(-1)
-    if ms.done_on_max_mass:
-        hit = (mass_a >= C.MODE3_MAX_MASS).any(-1)           # (k, N)
-        dones[:, :, 0] |= torch.cumsum(hit.to(torch.int32), 0) > 0
-    rewards = mass_a
-    if cfg.reward_type:
-        prev = torch.cat([resident.last_mass[None], mass_a[:-1]], dim=0)
-        rewards = mass_a - prev
-    new_res = ResidentState(raw=list(raw), last_mass=mass_a[-1].clone(),
-                            dones=dones[-1].clone())
+    with span("rim.rewards"):
+        mass_a = info[:, :, 0, :A]                           # (k, N, A)
+        step_alive = info[:, :, 1, :] > 0.0                  # (k, N, P)
+        dones = resident.dones[None].expand(k, -1, -1).clone()
+        if ms.done_on_death:
+            dones[:, :, 0] = (~step_alive).any(-1)
+        if ms.done_on_max_mass:
+            hit = (mass_a >= C.MODE3_MAX_MASS).any(-1)       # (k, N)
+            dones[:, :, 0] |= torch.cumsum(hit.to(torch.int32), 0) > 0
+        rewards = mass_a
+        if cfg.reward_type:
+            prev = torch.cat([resident.last_mass[None], mass_a[:-1]], dim=0)
+            rewards = mass_a - prev
+        new_res = ResidentState(raw=list(raw), last_mass=mass_a[-1].clone(),
+                                dones=dones[-1].clone())
     return new_res, obs, rewards, dones
 
 
@@ -237,8 +239,9 @@ def _finish_step(cfg: EnvConfig, states: GameState, obs, before,
     """Post-frame tail of a step: env.finish_step (main respawn, the mode's
     respawn / termination, rewards), then auto-reset
     (agarcl_tpu/ops/fused_step.py _finish_step)."""
-    states, rewards, dones = finish_step(cfg, states, before,
-                                         respawn_main_during_obs)
-    if auto_reset:
-        states = reset_done(cfg, states, dones)
+    with span("rim.finish"):
+        states, rewards, dones = finish_step(cfg, states, before,
+                                             respawn_main_during_obs)
+        if auto_reset:
+            states = reset_done(cfg, states, dones)
     return states, obs, rewards, dones

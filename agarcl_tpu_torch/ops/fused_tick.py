@@ -44,6 +44,7 @@ from agarcl_tpu_torch.env import apply_actions
 from agarcl_tpu_torch.obs.ram import RamObsConfig, ram_frame, ram_size
 from agarcl_tpu_torch.ops import _build
 from agarcl_tpu_torch.ops import params as KP
+from agarcl_tpu_torch.profiling import register_counters, span
 from agarcl_tpu_torch.state import GameState, zero_state
 
 # (name, kind): "s" per-env scalar -> (1, N); "p" per-player -> (P, N);
@@ -81,6 +82,8 @@ MAX_ROSTER = 9        # players K1 takes: the JAX package's fused-path cap
 launches = 0          # K1 launches (multi_step_raw and engine_tick_raw)
 tick_launches = 0     # K1 launches made through engine_tick_raw
 plain_calls = 0       # multi_step_raw_plain / engine_tick_raw_plain calls
+register_counters(__name__, "fused_tick",
+                  ("launches", "tick_launches", "plain_calls"))
 
 
 def _seed_plane(seed: torch.Tensor) -> torch.Tensor:
@@ -93,51 +96,54 @@ def to_kernel_arrays(states: GameState) -> list:
     """GameState -> list of contiguous (feature, N) planes. Every plane is
     a fresh copy: K1 updates the planes in place and must never write
     through to the GameState they came from."""
-    N = states.num_envs
-    out = []
-    for name, kind in SPLIT_PLAN:
-        x = getattr(states, name)
-        if name == "seed":
-            x = _seed_plane(x)
-        if kind == "s":
-            out.append(x[None, :])
-        elif kind == "p" or kind == "2d":
-            out.append(x.T)
-        elif kind in ("pk", "pc"):
-            out.append(x.reshape(N, -1).T)
-        elif kind == "v2p" or kind == "v2":
-            out += [x[..., 0].T, x[..., 1].T]
-        elif kind == "v2c":
-            out += [x[..., 0].reshape(N, -1).T, x[..., 1].reshape(N, -1).T]
-        else:
-            raise ValueError(kind)
-    return [p.clone(memory_format=torch.contiguous_format) for p in out]
+    with span("layout.to_kernel"):
+        N = states.num_envs
+        out = []
+        for name, kind in SPLIT_PLAN:
+            x = getattr(states, name)
+            if name == "seed":
+                x = _seed_plane(x)
+            if kind == "s":
+                out.append(x[None, :])
+            elif kind == "p" or kind == "2d":
+                out.append(x.T)
+            elif kind in ("pk", "pc"):
+                out.append(x.reshape(N, -1).T)
+            elif kind == "v2p" or kind == "v2":
+                out += [x[..., 0].T, x[..., 1].T]
+            elif kind == "v2c":
+                out += [x[..., 0].reshape(N, -1).T,
+                        x[..., 1].reshape(N, -1).T]
+            else:
+                raise ValueError(kind)
+        return [p.clone(memory_format=torch.contiguous_format) for p in out]
 
 
 def from_kernel_arrays(template: GameState, planes) -> GameState:
     """Inverse of to_kernel_arrays; the template supplies the fields the
     planes do not carry (dones, main_respawned) and the shapes. Every
     field is a fresh copy, never a view of a plane."""
-    kw = {}
-    i = 0
-    for name, kind in SPLIT_PLAN:
-        shp = getattr(template, name).shape
-        if kind == "s":
-            x = planes[i][0].clone()
-            if name == "seed":
-                x = x.to(torch.int64) & 0xFFFFFFFF
-            kw[name] = x
-            i += 1
-        elif kind in ("p", "2d", "pk", "pc"):
-            kw[name] = planes[i].T.reshape(shp).clone(
-                memory_format=torch.contiguous_format)
-            i += 1
-        else:
-            kw[name] = torch.stack([planes[i].T.reshape(shp[:-1]),
-                                    planes[i + 1].T.reshape(shp[:-1])],
-                                   dim=-1)
-            i += 2
-    return template.replace(**kw)
+    with span("layout.from_kernel"):
+        kw = {}
+        i = 0
+        for name, kind in SPLIT_PLAN:
+            shp = getattr(template, name).shape
+            if kind == "s":
+                x = planes[i][0].clone()
+                if name == "seed":
+                    x = x.to(torch.int64) & 0xFFFFFFFF
+                kw[name] = x
+                i += 1
+            elif kind in ("p", "2d", "pk", "pc"):
+                kw[name] = planes[i].T.reshape(shp).clone(
+                    memory_format=torch.contiguous_format)
+                i += 1
+            else:
+                kw[name] = torch.stack([planes[i].T.reshape(shp[:-1]),
+                                        planes[i + 1].T.reshape(shp[:-1])],
+                                       dim=-1)
+                i += 2
+        return template.replace(**kw)
 
 
 def refusal(cfg: EnvConfig) -> str | None:
@@ -302,25 +308,27 @@ def _launch(cfg: EnvConfig, planes, actions, k: int, n_ticks: int,
     info rows) on the planes in place. Returns (obs (k,N,A,R) | None,
     info (k,N,2,P))."""
     global launches
-    dev = planes[0].device
-    A, P = cfg.num_agents, cfg.num_players
-    R = ram_size(cfg, ocfg or RamObsConfig())
-    obs = (torch.empty((k, N, A, R), dtype=torch.float32, device=dev)
-           if ocfg is not None else None)
-    info = torch.empty((k, N, 2, P), dtype=torch.float32, device=dev)
-    ptr = (lambda t: t.data_ptr() if t is not None else None)
-    ax = ay = aact = None
-    if actions is not None:
-        ax, ay, aact = _actions_planes(cfg, actions, N)
-    lib = _build.load()
-    prm = KP.launch_env_params(cfg, ocfg)
-    status = lib.agarcl_multi_step(
-        ctypes.byref(prm), _ptr_array(planes), ptr(ax), ptr(ay), ptr(aact),
-        ptr(obs), info.data_ptr(), N, k, n_ticks,
-        torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(lib, status, "multi-step tick kernel")
-    launches += 1
-    return obs, info
+    with span("k1.launch") as sp:
+        dev = planes[0].device
+        A, P = cfg.num_agents, cfg.num_players
+        R = ram_size(cfg, ocfg or RamObsConfig())
+        obs = (torch.empty((k, N, A, R), dtype=torch.float32, device=dev)
+               if ocfg is not None else None)
+        info = torch.empty((k, N, 2, P), dtype=torch.float32, device=dev)
+        ptr = (lambda t: t.data_ptr() if t is not None else None)
+        ax = ay = aact = None
+        if actions is not None:
+            ax, ay, aact = _actions_planes(cfg, actions, N)
+        lib = _build.load()
+        prm = KP.launch_env_params(cfg, ocfg)
+        args = (ctypes.byref(prm), _ptr_array(planes), ptr(ax), ptr(ay),
+                ptr(aact), ptr(obs), info.data_ptr(), N, k, n_ticks,
+                torch.cuda.current_stream(dev).cuda_stream)
+        with sp.device(dev):
+            status = lib.agarcl_multi_step(*args)
+        _build.check(lib, status, "multi-step tick kernel")
+        launches += 1
+        return obs, info
 
 
 def launch_shape(cfg: EnvConfig, N: int) -> dict:

@@ -61,6 +61,7 @@ from agarcl_tpu_torch.obs.screen import (ScreenObsConfig, check_config,
 from agarcl_tpu_torch.ops import fused_obs, fused_step
 from agarcl_tpu_torch.ops import fused_screen as FS
 from agarcl_tpu_torch.ops import fused_tick as FT
+from agarcl_tpu_torch.profiling import span
 from agarcl_tpu_torch.state import GameState
 
 
@@ -129,9 +130,10 @@ class VecEnv:
         """(states, obs (N, A, ...) | None); per-env seeds as
         agarcl_tpu/vec.py:207-208, starting at global env `env_offset`
         (a shard's first env, parallel/mesh.py)."""
-        states = env_reset(self.cfg, reset_seeds(self.num_envs, seed,
-                                                 self.device, env_offset))
-        return states, self.observe(states)
+        with span("vec.reset"):
+            states = env_reset(self.cfg, reset_seeds(
+                self.num_envs, seed, self.device, env_offset))
+            return states, self.observe(states)
 
     def _actions(self, actions) -> torch.Tensor:
         a = torch.as_tensor(actions, dtype=torch.float32, device=self.device)
@@ -149,6 +151,10 @@ class VecEnv:
         for ram and none observations, a ResidentState (from make_resident
         or a previous resident call), and the result has the same kind.
         stack_obs=False returns the frames as a k-tuple."""
+        with span("vec.multi_step"):
+            return self._multi_step(states, actions, k, stack_obs)
+
+    def _multi_step(self, states, actions, k: int, stack_obs: bool):
         actions = self._actions(actions)
         if isinstance(states, fused_step.ResidentState):
             return fused_step.multi_step_resident(

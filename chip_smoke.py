@@ -151,7 +151,8 @@ engine). Phases, one line each:
      without a cross-player eat equal to K3's plain version on the planes
      of the state after the step;
  30. profiling: device_time_of on one K3 call against CUDA events,
-     StepTimer, and trace() (the screen kernel's device time);
+     the k3.launch span's device time, and trace() (the screen kernel's
+     device time);
  31. PPO (agarcl_tpu_torch/train_ppo.py) in examples/train_ppo.py's task
      (mode 3, arena 60, 200 pellets) at 8192 envs x 16 steps x 200
      iterations: K1 once a rollout step, K2 once at reset; K1's first
@@ -1427,8 +1428,8 @@ def _phase29(dev, gpu) -> dict:
 
 
 def _phase30(cfg, dev, s2, gpu) -> None:
-    """profiling.device_time_of on one K3 call against CUDA events;
-    StepTimer and trace on the card."""
+    """profiling.device_time_of on one K3 call against CUDA events; the
+    k3.launch span's events and trace on the card."""
     from agarcl_tpu_torch import profiling
     from agarcl_tpu_torch.obs.screen import ScreenObsConfig
     from agarcl_tpu_torch.ops import fused_screen as FS
@@ -1440,11 +1441,19 @@ def _phase30(cfg, dev, s2, gpu) -> None:
     ev_ms = _event_ms(call, 20)
     _check(0.5 < dt_ms / ev_ms < 2.0, f"device_time_of ({dt_ms} ms) near "
            f"the CUDA-event time ({ev_ms} ms)")
-    timer = profiling.StepTimer()
-    timer.start()
-    for _ in range(5):
-        timer.tick(N_ENVS, call())
-    rate = timer.stop()["env_steps_per_sec"]
+    profiling.clear()
+    prev = profiling.enable(True, device_ms=True)
+    try:
+        for _ in range(5):
+            call()
+    finally:
+        profiling.enable(*prev)
+    k3 = profiling.summary()["spans"]["k3.launch"]
+    profiling.clear()
+    span_ms = k3["device_ms"] / k3["count"]
+    _check(k3["count"] == 5 and 0.5 < span_ms / ev_ms < 2.0,
+           f"the k3.launch span's device time ({span_ms} ms) near the "
+           f"CUDA-event time ({ev_ms} ms)")
     with profiling.trace() as prof:
         call()
         torch.cuda.synchronize(dev)
@@ -1453,7 +1462,9 @@ def _phase30(cfg, dev, s2, gpu) -> None:
     print(f"[30 profiling] K3 at {N_ENVS} envs, S={S_SCREEN} agent view: "
           f"device_time_of {dt_ms:.4f} ms (median of 20, CUDA events around "
           f"each call), CUDA events over 20 calls {ev_ms:.4f} ms per call; "
-          f"StepTimer {rate:,.0f} frames/s over 5 calls; trace(): the "
+          f"k3.launch spans {span_ms:.4f} ms of device and "
+          f"{1e3 * k3['host_ms'] / k3['count']:.1f} us of host a launch "
+          f"over 5 calls; trace(): the "
           f"screen kernel's device time "
           + (f"{dev_us / 1e3:.4f} ms" if dev_us > 0 else "not measured")
           + f" | {gpu}", flush=True)

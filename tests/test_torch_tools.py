@@ -3,11 +3,14 @@
 metric name; the bot evaluator's final masses equal the JAX vmapped
 env_step run's (bench/bot_evaluator.py); the client's state, targets,
 leaderboard and frames equal agarcl_tpu.client.Client's; profiling's
-timers return sane values."""
+timer returns sane values and its spans nest, annotate and name the gym
+core's and VecEnv's layers."""
 
+import contextlib
 import functools
 import json
 import sys
+import time
 
 import jax
 import jax.numpy as jnp
@@ -190,13 +193,190 @@ def test_profiling_timers_on_the_cpu(tmp_path):
     x = torch.arange(1000.0)
     sec = profiling.device_time_of(lambda: (x * 2).sum(), iters=5)
     assert 0 < sec < 1
-    timer = profiling.StepTimer()
-    timer.start()
-    for _ in range(3):
-        timer.tick(8, {"r": x + 1})
-    out = timer.stop()
-    assert (out["calls"], out["env_steps"]) == (3, 24)
-    assert out["env_steps_per_sec"] > 0 and timer.history == [out]
+    with spans_on():
+        for _ in range(3):
+            with profiling.span("vec.multi_step"):
+                x + 1
+        got = profiling.summary()["spans"]["vec.multi_step"]
+    assert got["count"] == 3 and got["host_ms"] > 0
+    assert got["device_ms"] is None        # no launch on the CPU
     with profiling.trace(str(tmp_path)) as prof:
         (x * 3).sum()
     assert prof.key_averages() and list(tmp_path.glob("trace_*.json"))
+
+
+@contextlib.contextmanager
+def spans_on(annotate=False):
+    """Spans on (and empty) for the block; off and cleared after it."""
+    profiling.clear()
+    profiling.enable(True, annotate)
+    try:
+        yield
+    finally:
+        profiling.enable(False)
+        profiling.clear()
+
+
+def _tree(recs):
+    """(name, parent name) of each record, in order."""
+    return [(r[0], recs[r[3]][0] if r[3] >= 0 else None) for r in recs]
+
+
+def test_span_off_records_nothing():
+    assert profiling.enable(False) == (False, False, False)
+    profiling.clear()
+    a, b = profiling.span("gym.step"), profiling.span("k1.launch")
+    assert a is b                          # one shared no-op context
+    with a as sp, sp.device("cpu"):
+        with profiling.span("gym.fetch"):
+            pass
+    assert profiling.records() == []
+    assert profiling.summary()["spans"] == {}
+    # on, device ms not asked for: a launch span times nothing
+    with spans_on():
+        with profiling.span("k1.launch") as sp:
+            assert sp.device("cpu") is a
+        assert profiling.summary()["spans"]["k1.launch"]["device_ms"] is None
+    assert profiling.enable(True, device_ms=True) == (False, False, False)
+    assert profiling.enable(False) == (True, False, True)
+
+
+def test_span_parents_roots_and_self_time():
+    with spans_on():
+        with profiling.span("gym.step"):
+            with profiling.span("gym.actions"):
+                pass
+            with profiling.span("vec.multi_step"):
+                with profiling.span("layout.to_kernel"):
+                    time.sleep(0.002)
+            time.sleep(0.001)
+        with profiling.span("vec.reset"):
+            with profiling.span("reset.engine"):
+                pass
+        recs = profiling.records()
+        whole = profiling.summary()["spans"]
+        by_root = profiling.summary(root="vec.reset")["spans"]
+    assert [(r[0], r[3], r[4]) for r in recs] == [
+        ("gym.step", -1, 0), ("gym.actions", 0, 0),
+        ("vec.multi_step", 0, 0), ("layout.to_kernel", 2, 0),
+        ("vec.reset", -1, 4), ("reset.engine", 4, 4)]
+    assert all(r[1] <= r[2] for r in recs)
+    ms = {r[0]: (r[2] - r[1]) / 1e6 for r in recs}
+    step = whole["gym.step"]
+    assert step["count"] == 1 and step["host_ms"] == pytest.approx(
+        ms["gym.step"])
+    assert step["self_ms"] == pytest.approx(
+        ms["gym.step"] - ms["gym.actions"] - ms["vec.multi_step"])
+    assert step["self_ms"] >= 1.0          # the sleep outside its children
+    assert whole["vec.multi_step"]["self_ms"] == pytest.approx(
+        ms["vec.multi_step"] - ms["layout.to_kernel"])
+    assert set(by_root) == {"vec.reset", "reset.engine"}
+    assert set(profiling.summary()["counters"]) >= {
+        "fused_tick.launches", "fused_tick.tick_launches",
+        "fused_tick.plain_calls", "fused_screen.launches",
+        "fused_grid.plain_calls", "fused_obs.launches",
+        "screen.class_map_calls"}
+
+
+def test_span_annotations_under_the_cpu_profiler(tmp_path):
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    with spans_on(annotate=True):
+        with torch.profiler.profile(activities=acts) as prof:
+            with profiling.span("gym.step"):
+                with profiling.span("vec.multi_step"):
+                    with profiling.span("k1.launch"):
+                        torch.arange(10.0).sum()
+                with profiling.span("gym.fetch"):
+                    pass
+    path = tmp_path / "t.json"
+    prof.export_chrome_trace(str(path))
+    ann = sorted((e for e in json.loads(path.read_text())["traceEvents"]
+                  if e.get("cat") == "user_annotation"),
+                 key=lambda e: e["ts"])
+    assert [e["name"] for e in ann] == ["gym.step", "vec.multi_step",
+                                        "k1.launch", "gym.fetch"]
+    end = [e["ts"] + e["dur"] for e in ann]
+    assert ann[0]["ts"] <= ann[1]["ts"] <= ann[2]["ts"]
+    assert end[2] <= end[1] <= ann[3]["ts"] <= end[3] <= end[0]
+
+
+def test_gym_core_span_tree():
+    from agarcl_tpu_torch.gym_core import AgarioCore
+    core = AgarioCore("screen", None, "cpu", None, ticks_per_step=4,
+                      arena_size=120, num_pellets=50, num_viruses=0,
+                      num_bots=1, mode=10, screen_len=16, agent_view=True)
+    with spans_on():
+        core.reset(seed=3)
+        reset_recs = profiling.records()
+        profiling.clear()
+        core.step(((0.5, 0.2), 0))
+        recs = profiling.records()
+        steps = profiling.summary(root="gym.step")["spans"]
+    assert _tree(reset_recs) == [
+        ("gym.reset", None), ("reset.engine", "gym.reset"),
+        ("layout.to_kernel", "gym.reset"), ("gym.fetch", "gym.reset")]
+    # the plain backend's step (env_step) converts for its plain frame
+    assert _tree(recs) == [
+        ("gym.step", None), ("gym.actions", "gym.step"),
+        ("vec.multi_step", "gym.step"),
+        ("layout.to_kernel", "vec.multi_step"),
+        ("gym.fetch", "gym.step"), ("gym.fetch", "gym.step"),
+        ("gym.fetch", "gym.step")]
+    assert {r[4] for r in recs} == {0}
+    assert steps["gym.fetch"]["count"] == 3          # the step's host syncs
+    assert not any(n.endswith(".launch") for n in steps)
+
+
+def test_vecenv_span_tree():
+    from agarcl_tpu_torch import EnvConfig
+    from agarcl_tpu_torch.obs.screen import ScreenObsConfig
+    from agarcl_tpu_torch.ops import fused_step
+    from agarcl_tpu_torch.vec import VecEnv
+    cfg = EnvConfig(num_agents=1, ticks_per_step=4, arena_size=120,
+                    num_pellets=60, num_viruses=2, mode=4)
+    env = VecEnv(cfg, 3, "ram", backend="torch", device="cpu")
+    scr = ScreenObsConfig(16, agent_view=True)
+    with spans_on():
+        states, _ = env.reset(5)
+        reset_recs = profiling.records()
+        res = env.make_resident(states)
+        profiling.clear()
+        env.multi_step(res, torch.zeros(3, 1, 3), 2)
+        resident = profiling.records()
+        profiling.clear()
+        env.multi_step(states, torch.zeros(3, 1, 3), 2)
+        plain = profiling.records()
+        profiling.clear()
+        # the kernel route's step on CPU planes (the wrappers' plain
+        # versions stand in for the kernels): conversions and the rim
+        fused_step.fused_env_step(cfg, states, torch.zeros(3, 1, 3), scr,
+                                  1, True, True)
+        fused = profiling.records()
+    assert _tree(reset_recs) == [("vec.reset", None),
+                                 ("reset.engine", "vec.reset")]
+    tree = _tree(resident)
+    assert tree[0] == ("vec.multi_step", None)
+    assert tree[-1] == ("rim.rewards", "vec.multi_step")
+    assert {p for _, p in tree[1:]} == {"vec.multi_step"}
+    assert _tree(plain) == [("vec.multi_step", None)]
+    names = [n for n, _ in _tree(fused)]
+    assert names[0] == "layout.to_kernel" and names[-1] == "rim.finish"
+    assert names[-2] == "layout.from_kernel"
+    assert not any(n.endswith(".launch") for n in names)
+
+
+def test_trace_restores_the_span_state(tmp_path):
+    profiling.clear()
+    for before in ((False, False, False), (True, False, True)):
+        profiling.enable(*before)
+        try:
+            with profiling.trace(str(tmp_path)):
+                with profiling.span("vec.reset"):
+                    # the state inside the block, set again unchanged
+                    assert profiling.enable(True, True) == (True, True,
+                                                            False)
+            assert profiling.enable(*before) == before
+            assert [r[0] for r in profiling.records()] == ["vec.reset"]
+        finally:
+            profiling.enable(False)
+            profiling.clear()
