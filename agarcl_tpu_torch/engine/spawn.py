@@ -9,6 +9,8 @@ n at tick t is a pure function of (seed, stream, t, n) (SPEC D2).
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -114,6 +116,19 @@ def initial_viruses(cfg: EnvConfig, seed: torch.Tensor):
     return pos, alive
 
 
+_RAD25 = float(np.sqrt(C.CELL_MIN_SIZE / np.pi))
+
+
+@functools.lru_cache(maxsize=64)
+def _squared_respawn_max(cfg: EnvConfig, device) -> torch.Tensor:
+    """(2,) f32 upper corner of the squared-pellet respawn on `device`,
+    built once per configuration and device (a respawn inside a captured
+    CUDA graph then copies nothing from the host)."""
+    return torch.tensor([_f32(cfg.arena_width - _RAD25),
+                         _f32(cfg.arena_height - _RAD25)],
+                        dtype=torch.float32, device=device)
+
+
 def respawn_location(cfg: EnvConfig, pellet_pos, seed, tick, player_slot):
     """Engine::respawn placement: squared-pellet modes place the player
     near pellet slot 0 offset by two min-cell radii (clamped); otherwise
@@ -121,17 +136,13 @@ def respawn_location(cfg: EnvConfig, pellet_pos, seed, tick, player_slot):
 
     pellet_pos (N, Np, 2); seed and tick (N,); player_slot (P,).
     Returns (N, P, 2)."""
-    rad25 = float(np.sqrt(C.CELL_MIN_SIZE / np.pi))
     N = seed.shape[0]
     P = player_slot.shape[0]
     if cfg.mode_spec.squared_pellets:
-        loc = pellet_pos[:, 0] + _f32(2.0 * rad25)
-        hi = torch.tensor([_f32(cfg.arena_width - rad25),
-                           _f32(cfg.arena_height - rad25)],
-                          dtype=torch.float32, device=loc.device)
-        loc = torch.minimum(loc, hi)
+        loc = pellet_pos[:, 0] + _f32(2.0 * _RAD25)
+        loc = torch.minimum(loc, _squared_respawn_max(cfg, loc.device))
         return loc[:, None, :].expand(N, P, 2).clone()
-    return random_location(cfg.arena_width, cfg.arena_height, rad25,
+    return random_location(cfg.arena_width, cfg.arena_height, _RAD25,
                            seed[:, None], prng.STREAM_RESPAWN,
                            torch.as_tensor(tick)[..., None], player_slot)
 

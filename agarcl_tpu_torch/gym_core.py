@@ -11,6 +11,14 @@ caller asks for the CPU (device="cpu": the plain engine; backend="torch"
 runs the plain engine on the card too); without a CUDA device it raises.
 A screen step respawns a dead main player during observation and charges
 c_death (ScreenEnvironment.hpp:233-243), as the JAX wrapper does.
+
+On a CUDA device with the kernels (backend "cuda") a RAM, screen or grid
+core steps through ops/fused_step.py::StepGraphs: the step's PyTorch glue
+replayed as two CUDA graphs around the eager kernel launches, on a static
+state that `self.state` then is; a state assigned in its place (reset,
+load_env_state, seed, plain assignment) is copied into it at the next step.
+GoBigger, the CPU and backend "torch" step through VecEnv.step
+(`fused_step.eager_steps` counts those steps, `graph_steps` the others).
 """
 
 from __future__ import annotations
@@ -28,6 +36,7 @@ from agarcl_tpu_torch.obs.gobigger import GoBiggerObsConfig, to_player_states
 from agarcl_tpu_torch.obs.grid import GridObsConfig
 from agarcl_tpu_torch.obs.ram import RamObsConfig, ram_size
 from agarcl_tpu_torch.obs.screen import ScreenObsConfig, render_rgb
+from agarcl_tpu_torch.ops import fused_step
 from agarcl_tpu_torch.profiling import span
 from agarcl_tpu_torch.vec import VecEnv
 
@@ -83,6 +92,12 @@ class AgarioCore:
             self.cfg, 1, obs_type, backend=backend,
             device=self.device, obs_config=self.obs_config,
             respawn_main_during_obs=(obs_type == "screen"))
+        self.graphs = None
+        if backend == "cuda" and obs_type != "gobigger":
+            self.graphs = fused_step.StepGraphs(
+                self.cfg, self.obs_config, 1, self.device,
+                self.num_frames if obs_type != "ram" else 1,
+                respawn_main_during_obs=(obs_type == "screen"))
         self.steps = None
         self._seed = 0
         self._rng = np.random.default_rng(0)
@@ -177,8 +192,7 @@ class AgarioCore:
         with span("gym.step"):
             with span("gym.actions"):
                 acts = self._sanitize_actions(actions)
-            self.state, obs, rewards, dones = self.venv.step(self.state,
-                                                             acts[None])
+            self.state, obs, rewards, dones = self._step(acts[None])
             frames = ({k: v[0] for k, v in obs.items()}
                       if isinstance(obs, dict) else obs[0])
             observations = self._post_obs(frames)
@@ -201,6 +215,18 @@ class AgarioCore:
             self.steps += 1
             return observations, rewards, dones, truncations, \
                 {"steps": self.steps, "untransformed_rewards": rewards}
+
+    def _step(self, acts):
+        """One step of self.state: through the graphs, the state copied
+        into their static one first unless it is that one; else
+        VecEnv.step."""
+        g = self.graphs
+        if g is None:
+            fused_step.eager_steps += 1
+            return self.venv.step(self.state, acts)
+        if self.state is not g.state:
+            g.load(self.state)
+        return g.step(acts)
 
     def seed(self, seed=None):
         if seed is not None:

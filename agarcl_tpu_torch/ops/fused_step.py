@@ -7,7 +7,10 @@
   ScreenObsConfig or GridObsConfig;
 - `fused_env_step`: one step on a GameState (as fused_env_step): the tick
   kernel, the frame kernel (screen or grid) on the post-step planes, then
-  `_finish_step` (main respawn, mode rules, rewards, auto-reset).
+  `_finish_step` (main respawn, mode rules, rewards, auto-reset);
+- `StepGraphs`: the same step on one static GameState, its PyTorch glue
+  (`_step_in`, `_step_out`) replayed as two CUDA graphs around the eager
+  kernel launches (`_step_kernels`); the gym core's step on the card.
 
 A step that returns F frames (num_frames) follows the JAX fused step's
 chain (agarcl_tpu/ops/fused_step.py:66-80, :117-131): K1 with a tick count
@@ -38,8 +41,14 @@ from agarcl_tpu_torch.obs.screen import ScreenObsConfig
 from agarcl_tpu_torch.ops import fused_grid as FG
 from agarcl_tpu_torch.ops import fused_screen as FS
 from agarcl_tpu_torch.ops import fused_tick as FT
-from agarcl_tpu_torch.profiling import span
-from agarcl_tpu_torch.state import GameState, zero_state
+from agarcl_tpu_torch.profiling import register_counters, span
+from agarcl_tpu_torch.state import STATE_FIELDS, GameState, zero_state
+
+graph_captures = 0    # StepGraphs captures (two graphs each)
+graph_steps = 0       # gym steps replayed through StepGraphs
+eager_steps = 0       # gym steps that took VecEnv.step instead
+register_counters(__name__, "fused_step",
+                  ("graph_captures", "graph_steps", "eager_steps"))
 
 
 @dataclasses.dataclass
@@ -207,26 +216,57 @@ def fused_env_step(cfg: EnvConfig, states: GameState, actions, ocfg,
     GoBiggerObsConfig takes the plain gobigger_frame of the post-step state
     (the JAX package has no kernel for it). Returns (states,
     obs (N, F, A, ...), a GoBigger dict of (N, 1, A, ...) or None,
-    rewards (N, A), dones (N, A))."""
-    A = cfg.num_agents
-    before = states.player_mass()[:, :A].to(torch.float32)
-    ram = isinstance(ocfg, RamObsConfig)
+    rewards (N, A), dones (N, A)).
+
+    The step is three pieces: `_step_in` and `_step_out`, the PyTorch glue
+    around `_step_kernels`, the hand-written kernels; `StepGraphs` replays
+    the two glue pieces as CUDA graphs."""
+    planes, before, template = _step_in(cfg, states)
+    planes, obs = _step_kernels(cfg, planes, actions, ocfg, num_frames)
+    states, gb_obs, rewards, dones = _step_out(
+        cfg, template, planes, before, ocfg, respawn_main_during_obs,
+        auto_reset)
+    return states, (obs if gb_obs is None else gb_obs), rewards, dones
+
+
+def _step_in(cfg: EnvConfig, states: GameState):
+    """The glue before a step's kernels: the agents' masses before the
+    step (the `before` of delta-mass rewards), the kernel-layout planes
+    (fresh copies) and the template `from_kernel_arrays` fills, with
+    main_respawned zeroed. Returns (planes, before, template)."""
+    before = states.player_mass()[:, :cfg.num_agents].to(torch.float32)
     planes = FT.to_kernel_arrays(states)
+    template = states.replace(main_respawned=torch.zeros_like(
+        states.main_respawned))
+    return planes, before, template
+
+
+def _step_kernels(cfg: EnvConfig, planes, actions, ocfg, num_frames: int):
+    """A step's kernels on the planes (in place on CUDA): K1 through
+    multi_step_raw (with the RAM frame of a RamObsConfig), or for a frame
+    observation `_framed_step`'s chain into a fresh (F, N, A, ...) buffer.
+    Returns (planes, obs (N, F, A, ...) or None)."""
     route = frame_kernel(ocfg)
     if route is not None:
         frame, shape, dtype = route
-        out = torch.empty((num_frames, states.num_envs, A) + shape,
-                          dtype=dtype, device=states.device)
+        out = torch.empty((num_frames, planes[0].shape[-1], cfg.num_agents)
+                          + shape, dtype=dtype, device=planes[0].device)
         planes, _ = _framed_step(cfg, planes, actions, ocfg, num_frames,
                                  frame, FT.engine_tick_raw, out)
-        obs = out.transpose(0, 1)
-    else:
-        planes, obs, _ = FT.multi_step_raw(cfg, planes, actions, 1,
-                                           ocfg if ram else None)
-        obs = obs[0][:, None] if ram else None
-    template = states.replace(main_respawned=torch.zeros_like(
-        states.main_respawned))
+        return planes, out.transpose(0, 1)
+    ram = isinstance(ocfg, RamObsConfig)
+    planes, obs, _ = FT.multi_step_raw(cfg, planes, actions, 1,
+                                       ocfg if ram else None)
+    return planes, (obs[0][:, None] if ram else None)
+
+
+def _step_out(cfg: EnvConfig, template: GameState, planes, before, ocfg,
+              respawn_main_during_obs: bool, auto_reset: bool):
+    """The glue after a step's kernels: the GameState of the planes, the
+    GoBigger frame of a GoBiggerObsConfig, then `_finish_step`. Returns
+    (states, GoBigger obs dict or None, rewards (N, A), dones (N, A))."""
     states = FT.from_kernel_arrays(template, planes)
+    obs = None
     if isinstance(ocfg, GoBiggerObsConfig):
         obs = {k: v[:, None] for k, v in gobigger_frame(cfg, ocfg,
                                                         states).items()}
@@ -245,3 +285,90 @@ def _finish_step(cfg: EnvConfig, states: GameState, obs, before,
         if auto_reset:
             states = reset_done(cfg, states, dones)
     return states, obs, rewards, dones
+
+
+class StepGraphs:
+    """`fused_env_step` (no auto-reset) of one configuration, RAM, screen or
+    grid observation config and batch size on a static GameState that it
+    steps in place, with the glue around the kernels replayed as CUDA
+    graphs on the state's device: graph A is `_step_in` of the static
+    state, graph B `_step_out` and a copy of the new state, rewards and
+    dones into static buffers. K1 and K3 / K4 run
+    eagerly between the two replays (`_step_kernels`), through their
+    wrappers and the library's C entry points, on graph A's planes in
+    place; graph B reads them. At one env the glue is some 450 small
+    kernels a step, each a launch from the host; a replay is one.
+
+    `state` is the static GameState (the same object for the life of the
+    graphs); `load(states)` copies another state into it. The graphs are
+    captured at the first step, after one eager warm-up of both pieces on a
+    side stream, into one memory pool. The captured pieces copy nothing from
+    the host and never wait for the device. `step` returns the static
+    state, rewards and dones: the next step overwrites them."""
+
+    def __init__(self, cfg: EnvConfig, ocfg, num_envs: int, device,
+                 num_frames: int = 1, respawn_main_during_obs: bool = False):
+        self.cfg, self.ocfg = cfg, ocfg
+        self.num_frames = num_frames
+        self.respawn = respawn_main_during_obs
+        self.state = zero_state(cfg, num_envs, device)
+        self.rewards = torch.zeros((num_envs, cfg.num_agents),
+                                   dtype=torch.float32, device=device)
+        self.dones = torch.zeros((num_envs, cfg.num_agents),
+                                 dtype=torch.bool, device=device)
+        self._in = self._a = self._b = None
+
+    def load(self, states: GameState) -> None:
+        """Copy every field of `states` into the static state."""
+        for f in STATE_FIELDS:
+            getattr(self.state, f).copy_(getattr(states, f))
+
+    def _warm(self) -> None:
+        """Both pieces once, eagerly, the static state left as it was: what
+        they build once (cached constants) is built before the capture."""
+        planes, before, template = _step_in(self.cfg, self.state)
+        _step_out(self.cfg, template, planes, before, None, self.respawn,
+                  False)
+
+    def _out(self):
+        """Graph B's body: `_step_out` of graph A's outputs, copied into the
+        static state, rewards and dones."""
+        planes, before, template = self._in
+        new, _, rewards, dones = _step_out(self.cfg, template, planes,
+                                           before, None, self.respawn, False)
+        self.load(new)
+        self.rewards.copy_(rewards)
+        self.dones.copy_(dones)
+
+    def _capture(self) -> None:
+        global graph_captures
+        dev = self.state.device
+        main = torch.cuda.current_stream(dev)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            self._warm()
+        main.wait_stream(side)
+        pool = torch.cuda.graph_pool_handle()
+        self._a, self._b = torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self._a, pool=pool):
+            self._in = _step_in(self.cfg, self.state)
+        with torch.cuda.graph(self._b, pool=pool):
+            self._out()
+        graph_captures += 1
+
+    def step(self, actions):
+        """One step of the static state with (N, A, 3) actions: (state,
+        obs (N, F, A, ...) or None, rewards (N, A), dones (N, A))."""
+        global graph_steps
+        with torch.cuda.device(self.state.device):
+            if self._b is None:
+                self._capture()
+            with span("gym.graph"):
+                self._a.replay()
+            _, obs = _step_kernels(self.cfg, self._in[0], actions,
+                                   self.ocfg, self.num_frames)
+            with span("gym.graph"):
+                self._b.replay()
+        graph_steps += 1
+        return self.state, obs, self.rewards, self.dones

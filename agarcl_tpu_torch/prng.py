@@ -7,12 +7,16 @@ the port needs no `torch.Generator`.
 Torch has no `>>` on uint32 for CPU tensors, so the hash runs in int64
 holding values in [0, 2^32) and masks with 0xFFFFFFFF after every step.
 The 32x32-bit products are split into 16-bit halves so that no
-intermediate leaves int64 (a signed overflow would be undefined). The CUDA
-kernels hash in native uint32_t (csrc/common.cuh).
+intermediate leaves int64 (a signed overflow would be undefined). A counter
+given as a Python int (a stream, INIT_TICK, an axis) stays on the host: its
+product with the golden ratio is folded in Python and xor-ed in as a scalar,
+the same bits with no host-to-device copy, so a draw can be captured in a
+CUDA graph. The CUDA kernels hash in native uint32_t (csrc/common.cuh).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 # Stream identifiers (must match agarcl_tpu/prng.py and csrc/common.cuh).
@@ -27,13 +31,16 @@ _M32 = 0xFFFFFFFF
 _GOLDEN = 0x9E3779B9
 
 
-def _u32(v, device=None) -> torch.Tensor:
-    """Any int (or int tensor) -> int64 tensor of its uint32 bit pattern."""
-    t = torch.as_tensor(v, device=device)
-    return t.to(torch.int64) & _M32
+def _u32(v, device=None):
+    """A Python or numpy int -> the Python int of its uint32 bit pattern;
+    anything else (an int tensor or array) -> int64 tensor of its uint32
+    bit pattern on `device`."""
+    if isinstance(v, (int, np.integer)):
+        return int(v) & _M32
+    return torch.as_tensor(v, device=device).to(torch.int64) & _M32
 
 
-def _mul32(h: torch.Tensor, c: int) -> torch.Tensor:
+def _mul32(h, c: int):
     """(h * c) mod 2^32 for h in [0, 2^32) without int64 overflow."""
     lo = h & 0xFFFF
     hi = h >> 16
@@ -57,6 +64,8 @@ def hash_u32(seed, stream, tick, slot, axis=0) -> torch.Tensor:
     h = _mul32(_u32(seed, dev), _GOLDEN)
     for v in (stream, tick, slot, axis):
         h = _mix(h ^ _mul32(_u32(v, dev), _GOLDEN))
+    if not isinstance(h, torch.Tensor):
+        h = torch.tensor(h, dtype=torch.int64)
     return h
 
 

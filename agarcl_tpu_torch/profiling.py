@@ -44,6 +44,7 @@ SPANS = {
     "gym.reset": "gym_core.AgarioCore.reset",
     "gym.actions": "gym_core.AgarioCore._sanitize_actions",
     "gym.fetch": "each device-to-host copy of a gym step or reset",
+    "gym.graph": "ops/fused_step.py::StepGraphs.step, each graph replay",
     "vec.multi_step": "vec.VecEnv.multi_step (and so VecEnv.step)",
     "vec.reset": "vec.VecEnv.reset",
     "reset.engine": "env.env_reset",

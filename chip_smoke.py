@@ -115,8 +115,11 @@ engine). Phases, one line each:
      the same core with the plain backend on the card: tasks 10 and 1
      (load_task_core) for 300 steps, the default gym world (arena 1000,
      1000 pellets) with the grid at num_frames 4, RAM and GoBigger for 100
-     steps; obs, rewards and dones equal; a checkpoint and a JSON snapshot
-     saved on the card and reloaded give the same next step;
+     steps; obs, rewards and dones equal; the RAM, screen and grid cores
+     step through their two CUDA graphs (one capture, every step a graph
+     step; GoBigger every step eager), with the graph share and steps per
+     second printed; a checkpoint and a JSON snapshot saved on the card and
+     reloaded give the same next step;
  22. VecEnv(obs_type="gobigger") at 8192 envs: K1, then the plain
      gobigger_frame on the card, equal to the torch backend;
  23. times: num_frames-4 screen and grid env-steps/s, K1 per one-tick
@@ -928,19 +931,23 @@ def _gym_pair(make, steps, label, dev):
     _check(_obs_equal(kind, ko, po), f"{label}: reset obs equal (largest "
            f"difference {_obs_err(kind, ko, po)})")
     FT, K2, FS, FG = _kernel_modules()
-    counts = dict(k1=0, k1_tick=0, k2=0, k3=0, k4=0, plain=0)
+    from agarcl_tpu_torch.ops import fused_step as FST
+    counts = dict(k1=0, k1_tick=0, k2=0, k3=0, k4=0, plain=0, graph=0,
+                  eager=0, captures=0)
     rng = np.random.default_rng(4)
     t_k, done_steps = 0.0, 0
     for t in range(steps):
         act = ((float(rng.uniform(-1, 1)), float(rng.uniform(-1, 1))),
                int(rng.integers(0, 3)))
         c0 = (FT.launches, FT.tick_launches, K2.launches, FS.launches,
-              FG.launches, _plain_count())
+              FG.launches, _plain_count(), FST.graph_steps, FST.eager_steps,
+              FST.graph_captures)
         t0 = time.perf_counter()
         ko, kr, kd, _, _ = kc.step(act)
         t_k += time.perf_counter() - t0
         c1 = (FT.launches, FT.tick_launches, K2.launches, FS.launches,
-              FG.launches, _plain_count())
+              FG.launches, _plain_count(), FST.graph_steps, FST.eager_steps,
+              FST.graph_captures)
         for key, a, b in zip(counts, c0, c1):
             counts[key] += b - a
         po, pr, pd, _, _ = pc.step(act)
@@ -957,6 +964,13 @@ def _gym_pair(make, steps, label, dev):
            and (frames is None or counts[frames] == steps * F),
            f"{label}: K1 {steps * F}x ({via_tick} through engine_tick_raw), "
            f"the frame kernel {steps * F}x, plain 0x ({counts})")
+    graphed = kc.graphs is not None
+    route = ("every step through the graphs, one capture" if graphed
+             else "every step eager, no capture")
+    _check(counts["graph"] == (steps if graphed else 0)
+           and counts["eager"] == (0 if graphed else steps)
+           and counts["captures"] == int(graphed), f"{label}: {route} "
+           f"({counts})")
     return kc, pc, counts, t_k / steps, done_steps
 
 
@@ -992,9 +1006,11 @@ def _gym_phase(dev):
               f"{kc.cfg.arena_size}, {kc.cfg.num_pellets} pellets, "
               f"{steps} steps on the card: equal to the plain backend's core "
               f"(obs, rewards, dones; {dones} done steps); launches on the "
-              f"kernel core {counts}; {1e3 * t_step:.2f} ms per step "
-              f"(host clock, with the plain core's steps between)",
-              flush=True)
+              f"kernel core {counts}; graph share "
+              f"{100 * counts['graph'] / steps:.1f}% of its steps "
+              f"({counts['captures']} capture); {1e3 * t_step:.2f} ms per "
+              f"step, {1 / t_step:.1f} steps/s (host clock, with the plain "
+              f"core's steps between)", flush=True)
         if label.startswith("task 10"):
             snap_core = (kc, pc)
     # a snapshot and a checkpoint saved on the card and reloaded (without
