@@ -192,7 +192,8 @@ def finish_step(cfg: EnvConfig, state: GameState, before,
         state = state.replace(main_respawned=state.main_respawned | main_dead)
     dones = state.dones.clone()
     if ms.respawn_all:                                   # mode 0
-        state = respawn_players(cfg, state, ~state.player_alive())
+        with span("rim.respawn_all"):
+            state = respawn_players(cfg, state, ~state.player_alive())
     elif ms.done_on_death:                               # modes 7-10
         dones[:, 0] = (~state.player_alive()).any(-1) | state.main_respawned
     rewards = agent_masses(cfg, state)

@@ -51,6 +51,8 @@ SPANS = {
     "layout.to_kernel": "ops/fused_tick.py::to_kernel_arrays",
     "layout.from_kernel": "ops/fused_tick.py::from_kernel_arrays",
     "rim.finish": "ops/fused_step.py::_finish_step",
+    "rim.respawn_all": "env.finish_step, mode 0's respawn of every dead "
+                       "player",
     "rim.rewards": "ops/fused_step.py::multi_step_resident's rewards and "
                    "dones",
     "k1.launch": "ops/fused_tick.py::_launch",

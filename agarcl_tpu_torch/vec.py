@@ -29,7 +29,10 @@ run raises.
   kernel for them). With auto_reset, respawn_main_during_obs, mode 0's
   respawn or GoBigger every observation type goes step by step through a
   GameState (ops/fused_step.py::fused_env_step; RAM frames from K1 itself).
-  Nothing falls back to the CPU or to the plain version.
+  Nothing falls back to the CPU or to the plain version. The counters
+  `per_step_steps` and `resident_steps` (profiling.counters(), "vec.")
+  count the batch steps multi_step ran on each of the two paths, on
+  either backend.
 - backend="torch" runs the plain engine (engine_tick) and the plain frames
   (obs/ram.py::ram_frame; ops/fused_screen.py::frame_plain, or
   obs/screen.py::screen_frame for the screens K3 does not take;
@@ -61,8 +64,12 @@ from agarcl_tpu_torch.obs.screen import (ScreenObsConfig, check_config,
 from agarcl_tpu_torch.ops import fused_obs, fused_step
 from agarcl_tpu_torch.ops import fused_screen as FS
 from agarcl_tpu_torch.ops import fused_tick as FT
-from agarcl_tpu_torch.profiling import span
+from agarcl_tpu_torch.profiling import register_counters, span
 from agarcl_tpu_torch.state import GameState
+
+per_step_steps = 0    # batch steps (k a call) of multi_step's per-step loop
+resident_steps = 0    # batch steps of multi_step_resident calls
+register_counters(__name__, "vec", ("per_step_steps", "resident_steps"))
 
 
 class VecEnv:
@@ -155,18 +162,22 @@ class VecEnv:
             return self._multi_step(states, actions, k, stack_obs)
 
     def _multi_step(self, states, actions, k: int, stack_obs: bool):
+        global per_step_steps, resident_steps
         actions = self._actions(actions)
         if isinstance(states, fused_step.ResidentState):
+            resident_steps += k
             return fused_step.multi_step_resident(
                 self.cfg, states, actions, k, self.ocfg,
                 plain=self.backend != "cuda")
         if self.backend == "cuda" and not self._per_step:
+            resident_steps += k
             res = fused_step.to_resident(self.cfg, states)
             res, obs, r, d = fused_step.multi_step_resident(
                 self.cfg, res, actions, k, self.ocfg, stack_obs=stack_obs)
             if not stack_obs and self.obs_type == "ram":
                 obs = tuple(obs)
             return fused_step.from_resident(self.cfg, res), obs, r, d
+        per_step_steps += k
         obs, rs, ds = [], [], []
         for _ in range(k):
             if self.backend == "cuda":
