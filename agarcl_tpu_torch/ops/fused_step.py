@@ -119,6 +119,15 @@ def frame_kernel(ocfg, plain: bool = False):
     return None
 
 
+def frame_buffer(cfg: EnvConfig, ocfg, lead: tuple, N: int, device):
+    """An empty (*lead, N, A, ...) buffer for frames of a screen or grid
+    observation (`frame_kernel`'s per-frame shape and dtype): lead (F,)
+    holds one step's frames, (k, F) a call's."""
+    _, shape, dtype = frame_kernel(ocfg)
+    return torch.empty(lead + (N, cfg.num_agents) + shape, dtype=dtype,
+                       device=device)
+
+
 def _framed_step(cfg, raw, actions, ocfg, F, frame, tick, out):
     """One step that writes its F frames into out (F, N, A, ...) through
     `tick` (engine_tick_raw or its plain version): the chain of the module
@@ -140,18 +149,16 @@ def _frame_steps(cfg, raw, actions, k, ocfg, plain, stack_obs):
     Returns (planes, obs (k, N, F, A, ...) or a k-tuple of (N, F, A, ...),
     info (k, N, 2, P)). Each frame is written into its slice of a
     (k, F, N, A, ...) buffer, returned as a (k, N, F, A, ...) view."""
-    frame, shape, dtype = frame_kernel(ocfg, plain)
+    frame = frame_kernel(ocfg, plain)[0]
     tick = FT.engine_tick_raw_plain if plain else FT.engine_tick_raw
     F = ocfg.num_frames
     N = raw[0].shape[-1]
     dev = raw[0].device
-    full = (F, N, cfg.num_agents) + shape
-    buf = (torch.empty((k,) + full, dtype=dtype, device=dev) if stack_obs
-           else None)
+    buf = frame_buffer(cfg, ocfg, (k, F), N, dev) if stack_obs else None
     frames, info = [], []
     for t in range(k):
         out = (buf[t] if stack_obs
-               else torch.empty(full, dtype=dtype, device=dev))
+               else frame_buffer(cfg, ocfg, (F,), N, dev))
         raw, inf = _framed_step(cfg, raw, actions, ocfg, F, frame, tick, out)
         info.append(inf)
         if not stack_obs:
@@ -204,7 +211,7 @@ def multi_step_resident(cfg: EnvConfig, resident: ResidentState, actions,
 
 def fused_env_step(cfg: EnvConfig, states: GameState, actions, ocfg,
                    num_frames: int = 1, auto_reset: bool = False,
-                   respawn_main_during_obs: bool = False):
+                   respawn_main_during_obs: bool = False, out=None):
     """One env step of a batch through the kernel wrappers: apply actions
     plus ticks_per_step ticks (multi_step_raw with k=1, K1 on CUDA, which
     also writes the RAM frames of a RamObsConfig), or for a frame
@@ -218,11 +225,16 @@ def fused_env_step(cfg: EnvConfig, states: GameState, actions, ocfg,
     obs (N, F, A, ...), a GoBigger dict of (N, 1, A, ...) or None,
     rewards (N, A), dones (N, A)).
 
+    The frames are drawn into `out`, an (F, N, A, ...) buffer such as one
+    step's slice of `frame_buffer(cfg, ocfg, (k, F), ...)` (obs is then its
+    transposed view), or without it into a fresh buffer; other
+    observations take no `out`.
+
     The step is three pieces: `_step_in` and `_step_out`, the PyTorch glue
     around `_step_kernels`, the hand-written kernels; `StepGraphs` replays
     the two glue pieces as CUDA graphs."""
     planes, before, template = _step_in(cfg, states)
-    planes, obs = _step_kernels(cfg, planes, actions, ocfg, num_frames)
+    planes, obs = _step_kernels(cfg, planes, actions, ocfg, num_frames, out)
     states, gb_obs, rewards, dones = _step_out(
         cfg, template, planes, before, ocfg, respawn_main_during_obs,
         auto_reset)
@@ -241,18 +253,19 @@ def _step_in(cfg: EnvConfig, states: GameState):
     return planes, before, template
 
 
-def _step_kernels(cfg: EnvConfig, planes, actions, ocfg, num_frames: int):
+def _step_kernels(cfg: EnvConfig, planes, actions, ocfg, num_frames: int,
+                  out=None):
     """A step's kernels on the planes (in place on CUDA): K1 through
     multi_step_raw (with the RAM frame of a RamObsConfig), or for a frame
-    observation `_framed_step`'s chain into a fresh (F, N, A, ...) buffer.
-    Returns (planes, obs (N, F, A, ...) or None)."""
+    observation `_framed_step`'s chain into `out` (F, N, A, ...), a fresh
+    buffer when None. Returns (planes, obs (N, F, A, ...) or None)."""
     route = frame_kernel(ocfg)
     if route is not None:
-        frame, shape, dtype = route
-        out = torch.empty((num_frames, planes[0].shape[-1], cfg.num_agents)
-                          + shape, dtype=dtype, device=planes[0].device)
+        if out is None:
+            out = frame_buffer(cfg, ocfg, (num_frames,), planes[0].shape[-1],
+                               planes[0].device)
         planes, _ = _framed_step(cfg, planes, actions, ocfg, num_frames,
-                                 frame, FT.engine_tick_raw, out)
+                                 route[0], FT.engine_tick_raw, out)
         return planes, out.transpose(0, 1)
     ram = isinstance(ocfg, RamObsConfig)
     planes, obs, _ = FT.multi_step_raw(cfg, planes, actions, 1,

@@ -29,10 +29,14 @@ run raises.
   kernel for them). With auto_reset, respawn_main_during_obs, mode 0's
   respawn or GoBigger every observation type goes step by step through a
   GameState (ops/fused_step.py::fused_env_step; RAM frames from K1 itself).
-  Nothing falls back to the CPU or to the plain version. The counters
-  `per_step_steps` and `resident_steps` (profiling.counters(), "vec.")
-  count the batch steps multi_step ran on each of the two paths, on
-  either backend.
+  Nothing falls back to the CPU or to the plain version. On the per-step
+  path stacked screen and grid frames are drawn into one (k, F, N, A, ...)
+  buffer a call (ops/fused_step.py::frame_buffer), each step into its
+  slice, and returned as its (k, N, F, A, ...) view, as on the resident
+  path. The counters `per_step_steps` and `resident_steps`
+  (profiling.counters(), "vec.") count the batch steps multi_step ran on
+  each of the two paths, on either backend; `frames_in_place_steps` the
+  per-step path's steps that drew into the call's buffer.
 - backend="torch" runs the plain engine (engine_tick) and the plain frames
   (obs/ram.py::ram_frame; ops/fused_screen.py::frame_plain, or
   obs/screen.py::screen_frame for the screens K3 does not take;
@@ -68,8 +72,10 @@ from agarcl_tpu_torch.profiling import register_counters, span
 from agarcl_tpu_torch.state import GameState
 
 per_step_steps = 0    # batch steps (k a call) of multi_step's per-step loop
+frames_in_place_steps = 0   # of those, steps that drew into the call's buffer
 resident_steps = 0    # batch steps of multi_step_resident calls
-register_counters(__name__, "vec", ("per_step_steps", "resident_steps"))
+register_counters(__name__, "vec", ("per_step_steps", "frames_in_place_steps",
+                                    "resident_steps"))
 
 
 class VecEnv:
@@ -162,7 +168,7 @@ class VecEnv:
             return self._multi_step(states, actions, k, stack_obs)
 
     def _multi_step(self, states, actions, k: int, stack_obs: bool):
-        global per_step_steps, resident_steps
+        global per_step_steps, frames_in_place_steps, resident_steps
         actions = self._actions(actions)
         if isinstance(states, fused_step.ResidentState):
             resident_steps += k
@@ -178,12 +184,22 @@ class VecEnv:
                 obs = tuple(obs)
             return fused_step.from_resident(self.cfg, res), obs, r, d
         per_step_steps += k
+        cuda = self.backend == "cuda"
+        buf = None
+        if (cuda and stack_obs
+                and fused_step.frame_kernel(self.ocfg) is not None):
+            # each step's frames drawn in place: nothing to stack after
+            buf = fused_step.frame_buffer(
+                self.cfg, self.ocfg, (k, self._num_frames()), self.num_envs,
+                self.device)
+            frames_in_place_steps += k
         obs, rs, ds = [], [], []
-        for _ in range(k):
-            if self.backend == "cuda":
+        for t in range(k):
+            if cuda:
                 states, o, r, d = fused_step.fused_env_step(
                     self.cfg, states, actions, self.ocfg, self._num_frames(),
-                    self.auto_reset, self.respawn_main_during_obs)
+                    self.auto_reset, self.respawn_main_during_obs,
+                    None if buf is None else buf[t])
             else:
                 states, o, r, d = self._plain_step(states, actions)
             obs.append(o)
@@ -191,6 +207,8 @@ class VecEnv:
             ds.append(d)
         if self.ocfg is None:
             obs = None
+        elif buf is not None:
+            obs = buf.transpose(1, 2)
         elif stack_obs:
             obs = stack_frames(obs, 0)
         else:

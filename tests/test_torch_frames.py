@@ -10,6 +10,9 @@
   actions and ticks_per_step - F + 1 ticks, then F - 1 one-tick calls) run
   on CPU tensors, where every wrapper takes its plain version, against the
   plain backend: the resident multi_step and fused_env_step, exact.
+- fused_env_step drawing into a caller's `out` (VecEnv's per-step path on
+  the card, each step into its slice of the call's buffer) against its
+  fresh-buffer frames stacked, at F = 1, 2 and 3 (a zero frame at 2 ticks a step), exact.
 """
 
 import functools
@@ -167,3 +170,35 @@ def test_kernel_chain_on_cpu_matches_plain(kind, F):
     _same(o1, w1[1])
     assert torch.equal(r1, w1[2]) and torch.equal(d1, w1[3])
     _same(s1.cell_pos, w1[0].cell_pos)
+
+
+@pytest.mark.parametrize("tps,F", [(1, 1), (2, 2), (2, 3)])
+def test_fused_env_step_draws_into_out(tps, F):
+    """k = 3 steps of 3 envs on a 32x32 screen drawn into the slices of one
+    (k, F, N, A, ...) buffer give the frames, rewards and dones of the
+    fresh-buffer steps stacked; the frames are views of the buffer, the
+    fresh ones are not, and the zero frames of F > ticks_per_step overwrite
+    what the buffer held. (ticks_per_step 1 and 2: the tick is most of the
+    test's time.)"""
+    cfg, n, k = TCfg(**dict(KW, ticks_per_step=tps)), 3, 3
+    ocfg = TScreen(screen_len=32, agent_view=True, num_frames=F)
+    env = TVec(cfg, n, "screen", backend="torch", device="cpu",
+               obs_config=ocfg)
+    s_fresh = s_out = env.reset(5)[0]
+    acts = torch.from_numpy(_acts(3, n))
+    buf = fused_step.frame_buffer(cfg, ocfg, (k, F), n, "cpu").fill_(7)
+    lo, hi = buf.data_ptr(), buf.data_ptr() + buf.nbytes
+    fresh = []
+    for t in range(k):
+        s_fresh, o, r, d = fused_step.fused_env_step(cfg, s_fresh, acts,
+                                                     ocfg, F)
+        s_out, o_t, r_t, d_t = fused_step.fused_env_step(
+            cfg, s_out, acts, ocfg, F, out=buf[t])
+        assert not lo <= o.data_ptr() < hi
+        assert o_t.data_ptr() == buf[t].data_ptr()
+        assert torch.equal(r_t, r) and torch.equal(d_t, d)
+        fresh.append(o)
+    _same(buf.transpose(1, 2), torch.stack(fresh))
+    _same(s_out.cell_pos, s_fresh.cell_pos)
+    assert buf[:, F - min(F, tps):].any()
+    assert not buf[:, :F - min(F, tps)].any()

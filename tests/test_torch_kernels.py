@@ -449,6 +449,45 @@ CFG3 = EnvConfig(num_agents=1, ticks_per_step=4, arena_size=200,
 
 
 @pytest.mark.gpu
+def test_per_step_frames_drawn_in_place_on_the_card(cuda_device):
+    """VecEnv's per-step path (auto_reset, mode 3, a quarter of the envs
+    over the mass limit, so done and reset in the first step) on the card:
+    multi_step's frames, each step's drawn into its slice of one buffer a
+    call, equal k single steps' stacked, with the same states, rewards and
+    dones; vec.frames_in_place_steps grows by k a stacked call and not with
+    stack_obs=False (step, and multi_step's k-tuple)."""
+    from agarcl_tpu_torch import vec
+    n, k = 512, 3
+    env = VecEnv(CFG3, n, "screen", obs_config=ScreenObsConfig(
+        32, agent_view=True), auto_reset=True)
+    s0, _ = env.reset(4)
+    heavy = torch.arange(n, device=cuda_device) % 4 == 0
+    cm, ca = s0.cell_mass.clone(), s0.cell_alive.clone()
+    cid, cp = s0.cell_id.clone(), s0.cell_pos.clone()
+    nid = s0.next_cell_id.clone()
+    cm[heavy, 0, :2], ca[heavy, 0, 1], cid[heavy, 0, 1] = 20000, True, 9
+    cp[heavy, 0, 1] = cp[heavy, 0, 0] + torch.tensor([30.0, 0.0],
+                                                     device=cuda_device)
+    nid[heavy] = 10
+    s0 = s0.replace(cell_mass=cm, cell_alive=ca, cell_id=cid, cell_pos=cp,
+                    next_cell_id=nid)
+    acts = torch.tensor([[[0.6, -0.4, 0.0]]], device=cuda_device).expand(
+        n, 1, 3)
+    before = vec.frames_in_place_steps
+    got = env.multi_step(s0, acts, k)
+    assert vec.frames_in_place_steps == before + k
+    s, steps = s0, []
+    for _ in range(k):
+        s, *out = env.step(s, acts)
+        steps.append(out)
+    tup = env.multi_step(s0, acts, k, stack_obs=False)[1]
+    assert vec.frames_in_place_steps == before + k
+    _assert_same_steps(got, (s, *(torch.stack(x) for x in zip(*steps))))
+    assert torch.equal(got[1], torch.stack(tup))
+    assert bool(got[3][0][heavy, 0].all())
+
+
+@pytest.mark.gpu
 def test_multi_step_kernel_matches_plain_with_equal_ids(cuda_device):
     """K1 keeps both cells of one id in its rank order, lets both eat a
     pellet they both reach (as the plain engine's rank rule does) and
