@@ -20,6 +20,7 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
+import port_states
 import pytest
 import torch
 
@@ -28,7 +29,6 @@ from agarcl_tpu.engine.tick import engine_tick as j_tick
 from agarcl_tpu.env import apply_actions as j_apply
 from agarcl_tpu.obs.grid import GridObsConfig as JGrid
 from agarcl_tpu.obs.screen import ScreenObsConfig as JScreen
-from agarcl_tpu.state import GameState as JState
 from agarcl_tpu.vec import VecEnv as JVec
 from agarcl_tpu_torch import EnvConfig as TCfg
 from agarcl_tpu_torch.bridge import state_from_numpy, state_to_numpy
@@ -73,8 +73,8 @@ def _vec_pair(kind, F):
                                     ("grid", 6)])
 def test_plain_frames_match_xla_vec_env(kind, F):
     jenv, tenv = _vec_pair(kind, F)
-    js, _ = jenv.reset(3)
     ts, _ = tenv.reset(3)
+    js = port_states.to_jax(ts)
     for t in range(3):
         acts = _acts(t)
         js, jo, jr, jd = jenv.step(js, jnp.asarray(acts))
@@ -120,7 +120,7 @@ def _played():
                                                   (3, False)])
 def test_engine_tick_raw_plain_matches_jax_scan(n_ticks, with_actions):
     ts = _played()
-    js = JState(**{f: jnp.asarray(a) for f, a in state_to_numpy(ts).items()})
+    js = port_states.to_jax(ts)
     want = _j_chain()(js, jnp.asarray(_acts(2)), n_ticks, with_actions)
     planes, obs, info = FT.engine_tick_raw_plain(
         TCfg(**KW), FT.to_kernel_arrays(ts), n_ticks,

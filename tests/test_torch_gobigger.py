@@ -10,15 +10,15 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
+import port_states
 import pytest
 import torch
 
 from agarcl_tpu import EnvConfig as JCfg
 from agarcl_tpu.obs import gobigger as JGB
-from agarcl_tpu.state import GameState as JState
 from agarcl_tpu.vec import VecEnv as JVec
 from agarcl_tpu_torch import EnvConfig as TCfg
-from agarcl_tpu_torch.bridge import state_from_numpy, state_to_numpy
+from agarcl_tpu_torch.bridge import state_from_numpy
 from agarcl_tpu_torch.obs import gobigger as TGB
 from agarcl_tpu_torch.vec import VecEnv as TVec
 
@@ -48,8 +48,7 @@ def _played(name):
         act = np.full((N, A, 1), 2 if t % 2 == 0 else 0)
         acts = np.concatenate([rng.uniform(-1, 1, (N, A, 2)), act], -1)
         s = env.step(s, torch.from_numpy(acts.astype(np.float32)))[0]
-    return JState(**{f: jnp.asarray(a)
-                     for f, a in state_to_numpy(s).items()})
+    return port_states.to_jax(s)
 
 
 def _fields(js):

@@ -11,12 +11,12 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
+import port_states
 import pytest
 import torch
 
 from agarcl_tpu import EnvConfig as JCfg
 from agarcl_tpu import env_reset as j_reset
-from agarcl_tpu import env_step as j_step
 from agarcl_tpu.obs import grid as JG
 from agarcl_tpu.ops import fused_grid as JFG
 from agarcl_tpu.vec import VecEnv as JVec
@@ -36,25 +36,6 @@ N = 6
 F32 = np.float32
 
 
-def _played(kw, seed, steps, split=False, n=N):
-    """(n,) vmapped JAX states after random actions; `split` starts the
-    agents at mass 400 and splits every step (2-10 cells each)."""
-    cfg = JCfg(**kw)
-    step = jax.jit(jax.vmap(functools.partial(j_step, cfg)))
-    states = jax.jit(jax.vmap(functools.partial(j_reset, cfg)))(
-        jnp.arange(n, dtype=jnp.uint32) + seed)
-    if split:
-        states = states.replace(cell_mass=states.cell_mass.at[:, 0, 0].set(
-            400))
-    rng = np.random.default_rng(seed)
-    for _ in range(steps):
-        act = (np.full((n, 1, 1), 2) if split
-               else rng.integers(0, 3, (n, 1, 1)))
-        acts = np.concatenate([rng.uniform(-1, 1, (n, 1, 2)), act], -1)
-        states, _, _ = step(states, jnp.asarray(acts, jnp.float32))
-    return states
-
-
 def _collisions():
     """test_fused_grid_obs_bin_collisions's state: two viruses (masses 120
     and 180) and two of the bot's cells (40 and 90) forced into one bin."""
@@ -72,10 +53,12 @@ def _collisions():
 @functools.lru_cache(maxsize=None)
 def _states(name):
     if name == "split":
-        return _played(SOLO, 5, 4, split=True)
+        return port_states.played(SOLO, 5, 4, split=True)
     if name == "collisions":
         return _collisions()
-    return _played(SOLO, 3, 6) if name == "solo" else _played(DUEL, 7, 6)
+    if name == "solo":
+        return port_states.played(SOLO, 3, 6)
+    return port_states.played(DUEL, 7, 6)
 
 
 def _kw(name):
@@ -318,7 +301,7 @@ def test_vecenv_grid_auto_reset_matches_xla():
     the frames come back as a k-tuple (stack_obs=False)."""
     kw = dict(SOLO, mode=3, reward_type=False)
     jenv, tenv = _envs(kw, 16, "int32", auto_reset=True)
-    js, _ = jenv.reset(2)
+    js = port_states.to_jax(tenv.reset(2)[0])
     js = js.replace(
         cell_mass=js.cell_mass.at[:2, 0, :2].set(20000),
         cell_alive=js.cell_alive.at[:2, 0, 1].set(True),

@@ -14,8 +14,8 @@ import json
 from pathlib import Path
 
 import jax
-import jax.numpy as jnp
 import numpy as np
+import port_states
 import pytest
 import torch
 
@@ -23,7 +23,6 @@ from agarcl_tpu import EnvConfig as JCfg
 from agarcl_tpu.io import checkpoint as JC
 from agarcl_tpu.io import snapshot as JS
 from agarcl_tpu.io import video as JV
-from agarcl_tpu.state import GameState as JState
 from agarcl_tpu_torch import EnvConfig as TCfg
 from agarcl_tpu_torch.bridge import state_from_numpy, state_to_numpy
 from agarcl_tpu_torch.io import checkpoint as TC
@@ -53,8 +52,7 @@ def _played():
         acts[:, 0, :2] = torch.tensor([0.5, -0.3])
         acts[:, 0, 2] = (2, 1, 0)[t % 3]
         s = env.step(s, acts)[0]
-    return JState(**{f: jnp.asarray(a)
-                     for f, a in state_to_numpy(s).items()})
+    return port_states.to_jax(s)
 
 
 def _np(js):

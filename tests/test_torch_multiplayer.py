@@ -15,6 +15,7 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
+import port_states
 import pytest
 import torch
 
@@ -372,7 +373,7 @@ def test_vecenv_duel_ram_resident_matches_xla():
     kw = dict(DUEL_SMALL, ticks_per_step=4, num_viruses=0, arena_size=100)
     jenv = JVec(JCfg(**kw), n, obs_type="ram", donate=False)
     tenv = TVec(TCfg(**kw), n, "ram", backend="torch", device="cpu")
-    js, _ = jenv.reset(1)
+    js = port_states.to_jax(tenv.reset(1)[0])
     b = _boost_cross_eat(js)
     m = (jnp.arange(n) < 2)[:, None, None]
     js = js.replace(cell_mass=jnp.where(m, b.cell_mass, js.cell_mass),
@@ -397,7 +398,7 @@ def test_vecenv_mode0_respawn_with_bots_matches_xla():
     kw = dict(ROSTERS["mode0_4bots"], num_viruses=0, arena_size=100)
     jenv = JVec(JCfg(**kw), n, obs_type="ram", donate=False)
     tenv = TVec(TCfg(**kw), n, "ram", backend="torch", device="cpu")
-    js, _ = jenv.reset(2)
+    js = port_states.to_jax(tenv.reset(2)[0])
     js = _boost_cross_eat(js)
     ts = _to_port(js)
     acts = _acts(n, 1, 2)
@@ -413,9 +414,11 @@ def test_vecenv_mode0_respawn_with_bots_matches_xla():
 
 def test_bridge_round_trip_nine_players():
     """A 9-player JAX state crosses to the port and back field for field
-    (dtypes and the P axis included)."""
+    (dtypes and the P axis included): a reset and one tick of the port's
+    plain engine (bit-equal to XLA's, above), in the reset's dtypes."""
     kw = tuple(sorted(ROSTERS["mode0_8bots"].items()))
-    js = _j_tick(kw)(_j_reset(kw)(jnp.arange(N, dtype=jnp.uint32)))
+    js = _j_reset(kw)(jnp.arange(N, dtype=jnp.uint32))
+    js = port_states.to_jax(t_tick(TCfg(**dict(kw)), _to_port(js)), like=js)
     back = state_to_numpy(_to_port(js))
     for f, a in _np(js).items():
         assert back[f].dtype == a.dtype and back[f].shape == a.shape, f

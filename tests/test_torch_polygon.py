@@ -23,13 +23,13 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
+import port_states
 import pytest
 import torch
 from test_polygon_screen import check_class, pixel_grid
 
 from agarcl_tpu import EnvConfig as JCfg
 from agarcl_tpu import env_reset as j_reset
-from agarcl_tpu import env_step as j_step
 from agarcl_tpu.engine import geometry as JG
 from agarcl_tpu.obs import screen as JS
 from agarcl_tpu.ops import fused_screen as JFS
@@ -58,16 +58,14 @@ def _played():
     """(3,) duel states after 3 steps of splits, from masses 900 / 3000 /
     150 for the agent and 400 / 200 / 2500 for the bot: fans of 1-8 cells
     of every size, the bot drawn."""
-    cfg = JCfg(**DUEL)
-    js = jax.jit(jax.vmap(functools.partial(j_reset, cfg)))(
-        jnp.arange(3, dtype=jnp.uint32) + 11)
-    js = js.replace(cell_mass=js.cell_mass.at[:, :, 0].set(
-        jnp.asarray([[900, 400], [3000, 200], [150, 2500]])))
-    step = jax.jit(jax.vmap(functools.partial(j_step, cfg)))
-    acts = jnp.tile(jnp.asarray([[0.6, -0.4, 2.0]], jnp.float32), (3, 1, 1))
+    ts = port_states.reset(DUEL, np.arange(3) + 11)
+    mass = ts.cell_mass.clone()
+    mass[:, :, 0] = torch.tensor([[900, 400], [3000, 200], [150, 2500]])
+    ts = ts.replace(cell_mass=mass)
+    acts = np.tile(np.asarray([[0.6, -0.4, 2.0]], np.float32), (3, 1, 1))
     for _ in range(3):
-        js, _, _ = step(js, acts)
-    return js
+        ts = port_states.step(DUEL, ts, acts)
+    return port_states.to_jax(ts)
 
 
 ORACLE = dict(num_agents=1, ticks_per_step=1, arena_size=200,

@@ -40,11 +40,12 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N, T, LR = 8, 16, 3e-4
 # Bars above 0, each with the size measured at these seeds (ROADMAP.md
 # Queue 3 item 14: torch's and XLA's float32 sums of the MLP and Adam run in
-# other orders): loss 3.6e-7 relative, parameters 1.45e-5 (about 0.05 lr),
-# the policy's outputs 3.0e-7, the carried state 1.14e-5 after the
-# iterations (ulps of the actions moved into the targets) and the reset
-# frame 3.8e-6 (the example resets eagerly, examples/train_ppo.py:173-175,
-# and eager XLA rounds the spawn draw otherwise, Queue 3 item 10).
+# other orders): loss 1.1e-7 relative, parameters 6.8e-6 (about 0.02 lr),
+# the policy's outputs 3.6e-7 and the carried state 9.5e-6 after the
+# iterations (ulps of the actions moved into the targets). The example's
+# init, reset and first frame run here under jit (it runs them eagerly,
+# examples/train_ppo.py:173-175, where XLA rounds the spawn draw otherwise,
+# Queue 3 item 10), so the reset frame is exact.
 LOSS_RTOL = 1e-5
 PARAM_ATOL = 0.1 * LR
 STATE_ATOL = 1e-4
@@ -64,7 +65,7 @@ def example():
     jcfg = JCfg(num_agents=1, ticks_per_step=4, arena_size=60,
                 num_pellets=200, num_viruses=0, num_bots=0, mode=3)
     init, train_iter, frame_fn = ex.make_train(jcfg, JRam(), N, T, LR)
-    return ex, jcfg, init, train_iter, frame_fn
+    return ex, jcfg, jax.jit(init), train_iter, frame_fn
 
 
 def _np_params(params):
@@ -119,13 +120,21 @@ def test_policy_init_matches_mlp_init_scale():
 def test_train_iter_matches_jax(example):
     """Two train_iter calls of the port on the CPU against the example's,
     from carried parameters and states: loss, mean reward, parameters and
-    the engine state, at the module docstring's bars."""
+    the engine state, at the module docstring's bars.
+
+    The reference is the jitted form of the example's init, reset and
+    first frame; the example runs them eagerly. Jitted, the reset is the
+    one the port's reset equals bit for bit (test_torch_state.py), so the
+    start is the same on both sides and every difference below comes from
+    the trainer. The eager reset differs from it by XLA's rounding of the
+    spawn draw (Queue 3 item 10; 3.8e-6 in the reset frame at these seeds),
+    which the steps would carry and the bars would charge to the trainer."""
     _, jcfg, init, train_iter, frame_fn = example
     key = jax.random.PRNGKey(0)
     params, opt_state = init(key)
-    states = jax.vmap(functools.partial(j_reset, jcfg))(
+    states = jax.jit(jax.vmap(functools.partial(j_reset, jcfg)))(
         jnp.arange(N, dtype=jnp.uint32))
-    obs = jax.vmap(frame_fn)(states)
+    obs = jax.jit(jax.vmap(frame_fn))(states)
 
     t_init, t_train, t_reset = TP.make_train(TP.task_config(), RamObsConfig(),
                                              N, T, LR, device="cpu")

@@ -10,6 +10,7 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
+import port_states
 import torch
 
 from agarcl_tpu import EnvConfig as JCfg
@@ -17,7 +18,6 @@ from agarcl_tpu.obs.ram import RamObsConfig as JR
 from agarcl_tpu.obs.ram import pack_nearest_key as j_pack
 from agarcl_tpu.obs.ram import ram_frame as j_ram
 from agarcl_tpu.ops.fused_obs import fused_ram_obs as j_fused_ram
-from agarcl_tpu.vec import VecEnv as JVec
 from agarcl_tpu_torch import EnvConfig as TCfg
 from agarcl_tpu_torch.bridge import state_from_numpy
 from agarcl_tpu_torch.obs.ram import RamObsConfig as TR
@@ -26,6 +26,7 @@ from agarcl_tpu_torch.obs.ram import ram_frame as t_ram
 from agarcl_tpu_torch.obs.ram import ram_size
 from agarcl_tpu_torch.ops import fused_obs
 from agarcl_tpu_torch.ops.fused_tick import to_kernel_arrays
+from agarcl_tpu_torch.vec import VecEnv as TVec
 
 KW = dict(num_agents=1, ticks_per_step=4, arena_size=120, num_pellets=100,
           num_viruses=4, num_bots=0, mode=4)
@@ -33,13 +34,14 @@ KW = dict(num_agents=1, ticks_per_step=4, arena_size=120, num_pellets=100,
 
 @functools.lru_cache(maxsize=None)
 def _stepped():
-    cfg = JCfg(**KW)
-    env = JVec(cfg, 8, obs_type="ram", backend="xla", donate=False)
+    """8 envs of the JAX VecEnv's reset(5) after 3 steps, played by the
+    port's plain VecEnv (bit-equal to the XLA VecEnv, test_torch_vec.py)."""
+    env = TVec(TCfg(**KW), 8, "none", backend="torch", device="cpu")
     states, _ = env.reset(5)
-    acts = jnp.tile(jnp.asarray([[0.6, -0.4, 1.0]], jnp.float32), (8, 1, 1))
+    acts = np.tile(np.asarray([[0.6, -0.4, 1.0]], np.float32), (8, 1, 1))
     for _ in range(3):
-        states, _, _, _ = env.step(states, acts)
-    return states
+        states = env.step(states, acts)[0]
+    return port_states.to_jax(states)
 
 
 def _port_state(js):

@@ -15,6 +15,7 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
+import port_states
 import pytest
 import torch
 
@@ -23,7 +24,6 @@ from agarcl_tpu import env_reset as j_reset
 from agarcl_tpu.engine.tick import engine_tick as j_tick
 from agarcl_tpu.obs import grid as JG
 from agarcl_tpu.obs import screen as JS
-from agarcl_tpu.state import GameState as JState
 from agarcl_tpu_torch import EnvConfig as TCfg
 from agarcl_tpu_torch.bridge import state_from_numpy, state_to_numpy
 from agarcl_tpu_torch.engine.tick import engine_tick as t_tick
@@ -50,11 +50,6 @@ def _np(js):
     return {f: np.asarray(getattr(js, f)) for f in js.__dataclass_fields__}
 
 
-def _to_jax(ts):
-    return JState(**{f: jnp.asarray(a) for f, a in
-                     state_to_numpy(ts).items()})
-
-
 @functools.lru_cache(maxsize=None)
 def _jit(fn, kw, *args):
     cfg = JCfg(**dict(kw))
@@ -66,33 +61,40 @@ def _kw(d):
 
 
 @functools.lru_cache(maxsize=None)
-def _ticked12():
+def _ticks12():
     """The 12-player roster (mode 0, 11 bots: types 1-4 then HungryBots)
-    after 6 ticks of the port's engine_tick, each tick held bit for bit
-    against the jitted JAX engine_tick from the same state; returns the
-    port's last state."""
+    through 6 ticks of the port's engine_tick from the JAX reset, the agent
+    steered about its centroid with random actions: (state before, state
+    after) of each tick, as the port's GameStates."""
     cfg = TCfg(**ROSTER12)
-    js = _jit(j_reset, _kw(ROSTER12))(jnp.arange(N, dtype=jnp.uint32) + 3)
-    tick = _jit(j_tick, _kw(ROSTER12))
+    ts = state_from_numpy(_np(_jit(j_reset, _kw(ROSTER12))(
+        jnp.arange(N, dtype=jnp.uint32) + 3)))
     rng = np.random.default_rng(3)
-    for t in range(6):
-        c = np.asarray(js.player_centroid())
-        tgt = np.array(js.target)
+    out = []
+    for _ in range(6):
+        c = ts.player_centroid().numpy()
+        tgt = ts.target.numpy().copy()
         tgt[:, 0] = c[:, 0] + rng.uniform(-15, 15, c[:, 0].shape)
-        js = js.replace(target=jnp.asarray(tgt, jnp.float32),
-                        action=js.action.at[:, 0].set(
-                            jnp.asarray(rng.integers(0, 3, N), jnp.int32)))
-        ts = t_tick(cfg, state_from_numpy(_np(js)))
-        js = tick(js)
-        got = state_to_numpy(ts)
-        for f in STATE_FIELDS:
-            np.testing.assert_array_equal(got[f], np.asarray(getattr(js, f)),
-                                          err_msg=f"{f} tick {t}")
-    return ts
+        act = ts.action.numpy().copy()
+        act[:, 0] = rng.integers(0, 3, N)
+        before = ts.replace(target=torch.from_numpy(tgt),
+                            action=torch.from_numpy(act))
+        ts = t_tick(cfg, before)
+        out.append((before, ts))
+    return out
 
 
 def test_engine_tick_twelve_players_matches_xla():
-    ts = _ticked12()
+    """Each of _ticks12's ticks held bit for bit against the jitted JAX
+    engine_tick from the same state."""
+    tick = _jit(j_tick, _kw(ROSTER12))
+    for t, (before, after) in enumerate(_ticks12()):
+        want = tick(port_states.to_jax(before))
+        got = state_to_numpy(after)
+        for f in STATE_FIELDS:
+            np.testing.assert_array_equal(got[f], np.asarray(getattr(want, f)),
+                                          err_msg=f"{f} tick {t}")
+    ts = _ticks12()[-1][1]
     cfg = TCfg(**ROSTER12)
     assert cfg.num_players == 12 and not TFT.supports(cfg)
     assert cfg.bot_types() == (0, 1, 2, 3, 4) + (1,) * 7
@@ -105,8 +107,8 @@ def test_twelve_player_frames_match_xla(kind):
     """The torch backend's frames of the 12-player state (K3's and K4's
     plain versions on the planes, the route VecEnv takes) against the
     JAX package's class map and grid_frame: 0 differing values."""
-    ts = _ticked12()
-    cfg, js = TCfg(**ROSTER12), _to_jax(ts)
+    ts = _ticks12()[-1][1]
+    cfg, js = TCfg(**ROSTER12), port_states.to_jax(ts)
     planes = to_kernel_arrays(ts)
     if kind == "screen":
         oj, ot = JS.ScreenObsConfig(48), TS.ScreenObsConfig(48)
@@ -139,11 +141,11 @@ def test_vecenv_twelve_players_on_the_torch_backend():
         assert tuple(r.shape) == (4, 1) and torch.isfinite(r).all()
         if obs_type == "screen":
             want = _jit(JS.screen_frame, _kw(ROSTER12),
-                        JS.ScreenObsConfig(32))(_to_jax(s))
+                        JS.ScreenObsConfig(32))(port_states.to_jax(s))
             np.testing.assert_array_equal(o[:, 0].numpy(), np.asarray(want))
         elif obs_type == "grid":
             want = _jit(JG.grid_frame, _kw(ROSTER12),
-                        JG.GridObsConfig(grid_size=16))(_to_jax(s))
+                        JG.GridObsConfig(grid_size=16))(port_states.to_jax(s))
             np.testing.assert_array_equal(o[:, 0].numpy(), np.asarray(want))
         elif obs_type == "gobigger":
             assert o["clones"].shape[:3] == (4, 1, 1)
@@ -182,7 +184,7 @@ def test_large_frame_routes_match_xla(kind):
     calls = (TS.class_map_calls - before[0], TFS.plain_calls - before[1],
              TFG.plain_calls - before[2])
     assert calls == ((2, 0, 0) if kind == "screen" else (0, 0, 2))
-    want = np.asarray(_jit(jfn, _kw(TINY), oj)(_to_jax(s)))
+    want = np.asarray(_jit(jfn, _kw(TINY), oj)(port_states.to_jax(s)))
     np.testing.assert_array_equal(o[:, 0].numpy(), want)
     assert len(np.unique(want)) > 2
     if kind == "screen":

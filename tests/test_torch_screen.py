@@ -10,12 +10,12 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
+import port_states
 import pytest
 import torch
 
 from agarcl_tpu import EnvConfig as JCfg
 from agarcl_tpu import env_reset as j_reset
-from agarcl_tpu import env_step as j_step
 from agarcl_tpu.obs import screen as JS
 from agarcl_tpu.ops import fused_screen as JFS
 from agarcl_tpu.state import encode_pellet_key
@@ -33,33 +33,18 @@ SOLO = dict(num_agents=1, ticks_per_step=2, arena_size=120, num_pellets=80,
 DUEL = dict(num_agents=1, ticks_per_step=2, arena_size=120, num_pellets=80,
             num_viruses=4, mode=7)
 N = 6
-
-
-def _played(kw, seed, steps, split=False, n=N):
-    """(n,) vmapped JAX states after random actions (splits and feeds);
-    `split` starts the agents at mass 400 and splits every step, so each
-    ends with 2-10 cells."""
-    cfg = JCfg(**kw)
-    step = jax.jit(jax.vmap(functools.partial(j_step, cfg)))
-    states = jax.jit(jax.vmap(functools.partial(j_reset, cfg)))(
-        jnp.arange(n, dtype=jnp.uint32) + seed)
-    if split:
-        states = states.replace(cell_mass=states.cell_mass.at[:, 0, 0].set(
-            400))
-    rng = np.random.default_rng(seed)
-    for _ in range(steps):
-        act = (np.full((n, 1, 1), 2) if split
-               else rng.integers(0, 3, (n, 1, 1)))
-        acts = np.concatenate([rng.uniform(-1, 1, (n, 1, 2)), act], -1)
-        states, _, _ = step(states, jnp.asarray(acts, jnp.float32))
-    return states
+# test_screen_oracle's big mode-6 player (_oracle_scenarios)
+ORACLE_BIG = dict(num_agents=1, ticks_per_step=2, arena_size=200,
+                  num_pellets=40, num_viruses=3, mode=6)
 
 
 @functools.lru_cache(maxsize=None)
 def _states(name):
     if name == "split":
-        return _played(SOLO, 5, 4, split=True, n=64)
-    return _played(SOLO, 3, 8) if name == "solo" else _played(DUEL, 7, 8)
+        return port_states.played(SOLO, 5, 4, split=True, n=64)
+    if name == "solo":
+        return port_states.played(SOLO, 3, 8)
+    return port_states.played(DUEL, 7, 8)
 
 
 def _to_port(js):
@@ -380,18 +365,15 @@ def _oracle_scenarios():
         pellet_key=encode_pellet_key(cfg, ppos, palive),
         virus_pos=state.virus_pos.at[0].set(center + jnp.array([10.0, -4.0])),
         virus_alive=jnp.zeros_like(state.virus_alive).at[0].set(True))
-    big_kw = dict(num_agents=1, ticks_per_step=2, arena_size=200,
-                  num_pellets=40, num_viruses=3, mode=6)
-    bcfg = JCfg(**big_kw)
-    big = jax.jit(functools.partial(j_reset, bcfg))(5)
-    step = jax.jit(functools.partial(j_step, bcfg))
+    big = port_states.reset(ORACLE_BIG, [5])
     rng = np.random.default_rng(5)
     for _ in range(6):
         acts = np.zeros((1, 3), np.float32)
         acts[:, :2] = rng.uniform(-1, 1, (1, 2))
         acts[:, 2] = rng.integers(0, 3, 1)
-        big, _, _ = step(big, acts)
-    return [(kw, cross, 41), (kw, cross, 84), (big_kw, big, 64)]
+        big = port_states.step(ORACLE_BIG, big, acts[None])
+    big = jax.tree.map(lambda x: x[0], port_states.to_jax(big))
+    return [(kw, cross, 41), (kw, cross, 84), (ORACLE_BIG, big, 64)]
 
 
 def test_screen_frame_matches_xla_on_oracle_scenarios():
@@ -456,7 +438,7 @@ def test_vecenv_screen_auto_reset_matches_xla():
     20000-mass cells, finish on the first step and are reset in place."""
     kw = dict(SOLO, mode=3, reward_type=False)
     jenv, tenv = _envs(kw, 32, av=False, auto_reset=True)
-    js, _ = jenv.reset(2)
+    js = port_states.to_jax(tenv.reset(2)[0])
     js = js.replace(
         cell_mass=js.cell_mass.at[:2, 0, :2].set(20000),
         cell_alive=js.cell_alive.at[:2, 0, 1].set(True),
@@ -479,7 +461,7 @@ def test_vecenv_screen_respawn_main_matches_xla():
     frame is taken and the step pays c_death."""
     kw = dict(SOLO, c_death=-7)
     jenv, tenv = _envs(kw, 32, respawn_main_during_obs=True)
-    js, _ = jenv.reset(6)
+    js = port_states.to_jax(tenv.reset(6)[0])
     js = js.replace(cell_alive=js.cell_alive.at[:2].set(False))
     ts = _to_port(js)
     js, *jo = jenv.step(js, jnp.asarray(ACTS))

@@ -6,6 +6,7 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
+import port_states
 import pytest
 import torch
 
@@ -22,6 +23,7 @@ from agarcl_tpu_torch.engine.tick import engine_tick as t_tick
 from agarcl_tpu_torch.env import env_reset as t_reset
 from agarcl_tpu_torch.env import env_step as t_step
 from agarcl_tpu_torch.ops import fused_tick as FT
+from test_torch_screen import DUEL, ORACLE_BIG, SOLO
 
 KW = dict(num_agents=1, ticks_per_step=4, arena_size=110, num_pellets=60,
           num_viruses=3, mode=4)
@@ -35,16 +37,18 @@ def _jax_fields(s):
 @functools.lru_cache(maxsize=None)
 def _stepped_state():
     """A batched JAX state with several cells per player (splits of a
-    heavy cell), after a few ticks."""
+    heavy cell), after a few ticks of the port's plain engine (bit-equal
+    to the JAX tick, test_torch_engine.py), each field in the dtype of the
+    JAX reset it started from."""
     cfg = JCfg(**KW)
     s = jax.jit(jax.vmap(functools.partial(j_reset, cfg)))(
         jnp.asarray([0, 1, 2, 2**32 - 5, 2**31, 77], jnp.uint32))
     s = s.replace(cell_mass=s.cell_mass.at[:, 0, 0].set(300),
                   action=jnp.full((N, 1), 2, jnp.int32))
-    tick = jax.jit(jax.vmap(functools.partial(j_tick, cfg)))
+    ts = state_from_numpy(_jax_fields(s))
     for _ in range(3):
-        s = tick(s)
-    return s
+        ts = t_tick(TCfg(**KW), ts)
+    return port_states.to_jax(ts, like=s)
 
 
 def test_bridge_round_trip_is_exact():
@@ -181,3 +185,45 @@ def test_respawn_and_regen_draws_bit_equal_to_jax():
     tt = t_tick(cfg_t, state_from_numpy(_jax_fields(regen)))
     assert bool(np.asarray(jt.virus_alive).sum(-1).min() == KW["num_viruses"])
     _assert_fields_equal(jt, tt)
+
+
+# The states tests/port_states.py plays for the screen, grid and polygon
+# tests whose configurations no other test plays against the JAX package:
+# (kw, seed, split, n, the step counts that the tests take).
+PLAYED = {
+    "solo": (SOLO, 3, False, 6, (6, 8)),
+    "duel": (DUEL, 7, False, 6, (6, 8)),
+    "split6": (SOLO, 5, True, 6, (4,)),
+    "split64": (SOLO, 5, True, 64, (4,)),
+    "mode3_no_reward": (dict(SOLO, mode=3, reward_type=False), 2, False,
+                        32, (0, 2)),
+    "c_death": (dict(SOLO, c_death=-7), 6, False, 32, (0, 2)),
+    "oracle_mode6": (ORACLE_BIG, 5, False, 1, (6,)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(PLAYED))
+def test_port_states_played_bit_equal_to_jax(name):
+    """port_states.played, the port's plain reset and steps, equals field
+    for field (dtypes included) the jitted, vmapped JAX reset and steps from
+    the same seeds and actions."""
+    kw, seed, split, n, steps = PLAYED[name]
+    cfg = JCfg(**kw)
+    js = jax.jit(jax.vmap(functools.partial(j_reset, cfg)))(
+        jnp.arange(n, dtype=jnp.uint32) + seed)
+    if split:
+        js = js.replace(cell_mass=js.cell_mass.at[:, 0, 0].set(400))
+    step = jax.jit(jax.vmap(functools.partial(j_step, cfg)))
+    rng = np.random.default_rng(seed)
+    for t in range(max(steps) + 1):
+        if t:
+            act = (np.full((n, 1, 1), 2) if split
+                   else rng.integers(0, 3, (n, 1, 1)))
+            js, _, _ = step(js, jnp.asarray(np.concatenate(
+                [rng.uniform(-1, 1, (n, 1, 2)), act], -1), jnp.float32))
+        if t in steps:
+            got = _jax_fields(port_states.played(kw, seed, t, split, n))
+            for f, a in _jax_fields(js).items():
+                assert got[f].dtype == a.dtype, f
+                np.testing.assert_array_equal(got[f], a,
+                                              err_msg=f"{f} at step {t}")

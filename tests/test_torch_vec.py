@@ -15,6 +15,7 @@ import functools
 
 import jax.numpy as jnp
 import numpy as np
+import port_states
 import pytest
 import torch
 
@@ -110,7 +111,7 @@ def test_multi_step_matches_xla_vecenv(resident):
     tenv = TVec(TCfg(**KW), N, "ram", backend="torch", device="cpu")
     jenv = JVec(JCfg(**KW), N, obs_type="ram", backend="xla", donate=False)
     ts, _ = tenv.reset(11)
-    js, _ = jenv.reset(11)
+    js = port_states.to_jax(ts)
     if resident:
         ts = tenv.make_resident(ts)
     for _ in range(2):
